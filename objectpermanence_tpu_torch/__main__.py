@@ -1,0 +1,96 @@
+"""CLI of the port: `python -m objectpermanence_tpu_torch <mode> ...`.
+
+The same subcommands and flags as the JAX package's `main.py`. This slice
+ports `inference` for the OPNet family; every other mode, and every model
+not ported yet, exits non-zero saying so.
+"""
+
+import argparse
+import json
+import sys
+from typing import Any, Dict
+
+from objectpermanence_tpu_torch.models.registry import (
+    INFERENCE_SUPPORTED_MODELS, TRAINING_SUPPORTED_MODELS, get_model_spec,
+)
+
+
+def _load_json(path) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="training and inference over the CATER data (PyTorch/CUDA port)")
+    subparsers = parser.add_subparsers()
+
+    inference_parser = subparsers.add_parser("inference")
+    inference_parser.set_defaults(mode="inference")
+    inference_parser.add_argument("--model_type", type=str, required=True,
+                                  choices=INFERENCE_SUPPORTED_MODELS)
+    inference_parser.add_argument("--results_dir", type=str, required=True)
+    inference_parser.add_argument("--inference_config", type=str, required=True)
+    inference_parser.add_argument("--model_config", type=str, required=False)
+
+    preprocess_parser = subparsers.add_parser("preprocess")
+    preprocess_parser.set_defaults(mode="preprocess")
+    preprocess_parser.add_argument("--results_dir", type=str, required=True)
+    preprocess_parser.add_argument("--config", type=str, required=True)
+
+    training_parser = subparsers.add_parser("training")
+    training_parser.set_defaults(mode="training")
+    training_parser.add_argument("--model_type", type=str, required=True,
+                                 choices=TRAINING_SUPPORTED_MODELS)
+    training_parser.add_argument("--model_config", type=str, required=True)
+    training_parser.add_argument("--training_config", type=str, required=True)
+    training_parser.add_argument("--resume", action="store_true")
+
+    analysis_parser = subparsers.add_parser("analysis")
+    analysis_parser.set_defaults(mode="analysis")
+    analysis_parser.add_argument("--predictions_dir", type=str, required=True)
+    analysis_parser.add_argument("--labels_dir", type=str, required=True)
+    for flag in ("--containment_annotations", "--containment_only_static_annotations",
+                 "--containment_with_movements_annotations", "--visibility_ratio_gt_0",
+                 "--visibility_ratio_gt_30", "--visibility_ratio_gt_99"):
+        analysis_parser.add_argument(flag, type=str, required=False)
+    analysis_parser.add_argument("--iou_thresholds", type=str, required=True)
+    analysis_parser.add_argument("--output_file", type=str, required=True)
+
+    cater_parser = subparsers.add_parser("cater_inference")
+    cater_parser.set_defaults(mode="cater_inference")
+    cater_parser.add_argument("--results_dir", type=str, required=True)
+    cater_parser.add_argument("--inference_config", type=str, required=True)
+    cater_parser.add_argument("--model_config", type=str, required=False)
+    cater_parser.add_argument("--model_type", type=str, default="opnet",
+                              choices=TRAINING_SUPPORTED_MODELS)
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    mode = getattr(args, "mode", None)
+    if mode is None:
+        parser.print_help()
+        return 0
+    if mode != "inference":
+        print(f"{mode}: not yet ported to PyTorch; see ROADMAP.md, Next slices",
+              file=sys.stderr)
+        return 2
+    try:
+        get_model_spec(args.model_type)
+    except NotImplementedError as exc:
+        print(f"inference for {args.model_type}: not yet ported ({exc})", file=sys.stderr)
+        return 2
+    if args.model_config is None:
+        parser.error("inference of a learned model needs --model_config")
+
+    from objectpermanence_tpu_torch.infer.reasoning import reasoning_inference_main
+    reasoning_inference_main(args.model_type, args.results_dir,
+                             _load_json(args.inference_config), _load_json(args.model_config))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,52 @@
+"""Bias-free LSTM, the counterpart of `objectpermanence_tpu/ops/lstm.py`.
+
+Weights keep the JAX package's layout, `w_ih (D, 4H)` and `w_hh (H, 4H)`,
+gate order `[i, f, g, o]` along the 4H axis (torch.nn.LSTM's
+`weight_ih_l0.T` / `weight_hh_l0.T`), so parameters cross the weight
+bridge without a transpose. The recurrence is a plain time loop; its
+fused kernel (`lstm_scan_fused`) is ported in a later slice.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+
+def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """One LSTM step from pre-activation gates `(B, 4H)` and cell `(B, H)`;
+    returns `(h, c)`."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """Run one layer over `x (B, T, D)` -> `(B, T, H)`. The input projection
+    for the whole sequence is one product, as in `lstm_apply`."""
+    batch, seq_len, _ = x.shape
+    hidden = w_hh.shape[0]
+    xproj = torch.matmul(x, w_ih)  # (B, T, 4H)
+    h = x.new_zeros(batch, hidden)
+    c = x.new_zeros(batch, hidden)
+    hs = []
+    for t in range(seq_len):
+        h, c = lstm_cell(xproj[:, t] + h @ w_hh, c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+class LSTM(nn.Module):
+    """Parameters `w_ih`, `w_hh` as in the JAX pytree; U(-k, k) init with
+    k = 1/sqrt(H), as torch.nn.LSTM and `lstm_init`."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, generator=None):
+        super().__init__()
+        k = 1.0 / math.sqrt(hidden_dim)
+        self.w_ih = nn.Parameter(
+            torch.empty(input_dim, 4 * hidden_dim).uniform_(-k, k, generator=generator))
+        self.w_hh = nn.Parameter(
+            torch.empty(hidden_dim, 4 * hidden_dim).uniform_(-k, k, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return lstm_forward(x, self.w_ih, self.w_hh)

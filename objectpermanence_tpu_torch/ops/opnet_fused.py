@@ -1,0 +1,134 @@
+"""Fused OPNet forward: the CUDA kernel `csrc/opnet_fused.cu` and its plain
+version.
+
+Counterpart of `opnet_fused_forward` in
+`objectpermanence_tpu/ops/pallas_scan.py` (the Pallas kernel
+`_opnet_kernel`). Same function, same public layouts:
+`boxes (B, T, O, F)` -> `(y (B, T, 4), logits (B, O, T))`, weights in the
+JAX layout `w (in, out)`, LSTM gates `[i, f, g, o]`, no biases.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs `opnet_forward_reference`, a step-by-step loop of the same
+arithmetic. fp32 only; the bf16 operand mode of the TPU kernel is not
+ported yet.
+"""
+
+import ctypes
+
+import torch
+
+from objectpermanence_tpu_torch.ops import _build
+from objectpermanence_tpu_torch.ops.lstm import lstm_cell
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = _build.load("opnet_fused").opnet_fused_forward_f32
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def opnet_forward_reference(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
+    """Plain PyTorch OPNet forward, one step at a time, on any device."""
+    batch, seq_len, num_objects, feat = boxes.shape
+    xproj1 = torch.matmul(boxes.reshape(batch, seq_len, num_objects * feat), w1_ih)
+    h1 = boxes.new_zeros(batch, w1_hh.shape[0])
+    c1 = torch.zeros_like(h1)
+    h2 = boxes.new_zeros(batch, w2_hh.shape[0])
+    c2 = torch.zeros_like(h2)
+    ys, logits = [], []
+    for t in range(seq_len):
+        h1, c1 = lstm_cell(xproj1[:, t] + h1 @ w1_hh, c1)
+        step_logits = h1 @ w_att                                  # (B, O)
+        probs = torch.softmax(step_logits, dim=-1)
+        selected = (boxes[:, t] * probs[..., None]).sum(dim=1)    # (B, F)
+        h2, c2 = lstm_cell(selected @ w2_ih + h2 @ w2_hh, c2)
+        ys.append(h2 @ w_head)
+        logits.append(step_logits)
+    return torch.stack(ys, dim=1), torch.stack(logits, dim=2)
+
+
+def _unit_major(w):
+    """(D, 4H) gate-major columns (gate * H + u) -> unit-major (4u + gate)."""
+    rows, cols = w.shape
+    return w.view(rows, 4, cols // 4).transpose(1, 2).reshape(rows, cols)
+
+
+def _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
+    tensors = {"boxes": boxes, "w1_ih": w1_ih, "w1_hh": w1_hh, "w_att": w_att,
+               "w2_ih": w2_ih, "w2_hh": w2_hh, "w_head": w_head}
+    for name, x in tensors.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != boxes.device:
+            raise ValueError(f"{name} is on {x.device}, boxes on {boxes.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if boxes.dim() != 4:
+        raise ValueError(f"boxes must be (B, T, O, F), got {tuple(boxes.shape)}")
+    batch, seq_len, num_objects, feat = boxes.shape
+    att_hidden, vid_hidden = w1_hh.shape[0], w2_hh.shape[0]
+    expected = {"w1_ih": (num_objects * feat, 4 * att_hidden),
+                "w1_hh": (att_hidden, 4 * att_hidden),
+                "w_att": (att_hidden, num_objects),
+                "w2_ih": (feat, 4 * vid_hidden),
+                "w2_hh": (vid_hidden, 4 * vid_hidden),
+                "w_head": (vid_hidden, 4)}
+    for name, shape in expected.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape} for boxes {tuple(boxes.shape)}, "
+                             f"got {tuple(tensors[name].shape)}")
+    if batch < 1 or seq_len < 1:
+        raise ValueError(f"empty batch or sequence: boxes {tuple(boxes.shape)}")
+    if num_objects > 32 or feat > 8:
+        raise ValueError(f"the kernel takes at most 32 object slots and 8 features, "
+                         f"got {num_objects} and {feat}")
+    if att_hidden % 4 or vid_hidden % 4:
+        raise ValueError(f"hidden widths must be multiples of 4, got {att_hidden}, {vid_hidden}")
+
+
+def opnet_fused_forward(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
+    """`boxes (B, T, O, F)` -> `(y (B, T, 4), logits (B, O, T))`.
+
+    CUDA tensors launch the kernel (and count one launch); CPU tensors run
+    `opnet_forward_reference`. The input projection `scene @ w1_ih` is one
+    torch.matmul outside the kernel, as XLA computed it outside Pallas; for
+    fp32 parity TF32 must be off (`torch.backends.cuda.matmul.allow_tf32`)."""
+    _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head)
+    if boxes.device.type == "cpu":
+        return opnet_forward_reference(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"opnet_fused_forward runs on cuda or cpu, got {boxes.device}")
+
+    batch, seq_len, num_objects, feat = boxes.shape
+    att_hidden, vid_hidden = w1_hh.shape[0], w2_hh.shape[0]
+    fn = _kernel()
+    with torch.cuda.device(boxes.device):
+        xproj1 = torch.matmul(boxes.view(batch, seq_len, num_objects * feat),
+                              _unit_major(w1_ih))  # (B, T, 4*H1), unit-major
+        w1_hh_u = _unit_major(w1_hh)
+        w2_ih_u = _unit_major(w2_ih)
+        w2_hh_u = _unit_major(w2_hh)
+        w_att_t = w_att.t().contiguous()
+        w_head_t = w_head.t().contiguous()
+        y = torch.empty((batch, seq_len, 4), dtype=torch.float32, device=boxes.device)
+        logits = torch.empty((batch, num_objects, seq_len), dtype=torch.float32,
+                             device=boxes.device)
+        err = fn(xproj1.data_ptr(), boxes.data_ptr(), w1_hh_u.data_ptr(), w_att_t.data_ptr(),
+                 w2_ih_u.data_ptr(), w2_hh_u.data_ptr(), w_head_t.data_ptr(),
+                 y.data_ptr(), logits.data_ptr(), batch, seq_len, num_objects, feat,
+                 att_hidden, vid_hidden, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"opnet_fused kernel launch failed: cudaError {err}")
+    opnet_fused_forward.launches += 1
+    return y, logits
+
+
+opnet_fused_forward.launches = 0
