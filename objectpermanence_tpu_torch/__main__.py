@@ -1,8 +1,8 @@
 """CLI of the port: `python -m objectpermanence_tpu_torch <mode> ...`.
 
-The same subcommands and flags as the JAX package's `main.py`. This slice
-ports `inference` for the OPNet family; every other mode, and every model
-not ported yet, exits non-zero saying so.
+The same subcommands and flags as the JAX package's `main.py`. `inference`
+and `training` are ported for the OPNet family; every other mode, and
+every model not ported yet, exits non-zero saying so.
 """
 
 import argparse
@@ -74,21 +74,46 @@ def main(argv=None) -> int:
     if mode is None:
         parser.print_help()
         return 0
-    if mode != "inference":
+    if mode not in ("inference", "training"):
         print(f"{mode}: not yet ported to PyTorch; see ROADMAP.md, Next slices",
               file=sys.stderr)
         return 2
     try:
-        get_model_spec(args.model_type)
+        spec = get_model_spec(args.model_type)
     except NotImplementedError as exc:
-        print(f"inference for {args.model_type}: not yet ported ({exc})", file=sys.stderr)
+        print(f"{mode} for {args.model_type}: not yet ported ({exc})", file=sys.stderr)
         return 2
+
+    if mode == "training":
+        return _training(args, spec)
     if args.model_config is None:
         parser.error("inference of a learned model needs --model_config")
-
     from objectpermanence_tpu_torch.infer.reasoning import reasoning_inference_main
     reasoning_inference_main(args.model_type, args.results_dir,
                              _load_json(args.inference_config), _load_json(args.model_config))
+    return 0
+
+
+def _training(args, spec) -> int:
+    """`main.py`'s training mode: ingest train and dev with their
+    containment files, then `training_main`. The device is resolved first,
+    so a run meant for the card fails before it ingests anything."""
+    from objectpermanence_tpu_torch import resolve_device
+    from objectpermanence_tpu_torch.config import config_device, training_config_from
+    from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.train.loop import training_main
+
+    model_config = _load_json(args.model_config)
+    train_config = _load_json(args.training_config)
+    cfg = training_config_from(train_config)
+    device = resolve_device(config_device(cfg.device))
+    train_dataset = ingest_directory(cfg.train_sample_dir, cfg.train_labels_dir,
+                                     spec.feature_width, cfg.train_containment_file,
+                                     cfg.cache_dir)
+    dev_dataset = ingest_directory(cfg.dev_sample_dir, cfg.dev_labels_dir, spec.feature_width,
+                                   cfg.dev_containment_file, cfg.cache_dir)
+    training_main(spec, train_dataset, dev_dataset, cfg, model_config, resume=args.resume,
+                  device=device)
     return 0
 
 

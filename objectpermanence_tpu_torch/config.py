@@ -1,5 +1,5 @@
 """Typed configuration, the port's copy of `objectpermanence_tpu/config.py`
-(the inference part).
+(the training and inference parts).
 
 The JSON files in the repository's `configs/` parse into dataclasses:
 unknown keys fail loudly, missing keys get defaults or a clear error. Key
@@ -48,6 +48,53 @@ def load_model_config(model_name: str) -> dict:
         model_name = "opnet"
     with open(CONFIGS_DIR / f"{model_name}_model_config.json") as f:
         return {**json.load(f), **overlay}
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """Mirrors `configs/training_config.json`. `device` is "cpu" for the
+    CPU; any other value (the shipped "tpu" included) means the CUDA card."""
+    train_sample_dir: str
+    train_labels_dir: str
+    train_containment_file: str
+    dev_sample_dir: str
+    dev_labels_dir: str
+    dev_containment_file: str
+    batch_size: int = 16
+    inference_batch_size: int = 400
+    num_workers: int = 0            # accepted for config-file compatibility
+    num_epochs: int = 160
+    print_step: int = 100
+    learning_rate: float = 1e-3
+    lr_scheduler_patience: int = 2
+    lr_scheduler_factor: float = 0.8
+    device: str = ""
+    checkpoints_path: str = "./checkpoints"
+    cache_dir: Optional[str] = None
+    seed: int = 0
+    profile_dir: Optional[str] = None    # torch.profiler trace of the first epoch
+    debug_nans: bool = False             # torch.autograd.detect_anomaly
+    metrics_file: Optional[str] = None   # jsonl per-epoch metrics
+    device_resident_data: bool = True    # accepted; datasets always live on the device
+
+    def validate(self) -> "TrainingConfig":
+        if self.batch_size < 1 or self.num_epochs < 1:
+            raise ConfigError("batch_size and num_epochs must be >= 1")
+        if not (0 < self.lr_scheduler_factor <= 1):
+            raise ConfigError("lr_scheduler_factor must be in (0, 1]")
+        return self
+
+
+def training_config_from(data) -> TrainingConfig:
+    if isinstance(data, TrainingConfig):
+        return data.validate()
+    return _from_dict(TrainingConfig, dict(data), "training_config").validate()
+
+
+def config_device(device: str) -> str:
+    """A config's `device` as a torch device name: "cpu" stays the CPU,
+    anything else means the card."""
+    return "cpu" if device == "cpu" else "cuda"
 
 
 @dataclass(frozen=True)

@@ -269,6 +269,10 @@ class IngestedDataset:
     def __len__(self):
         return len(self.names)
 
+    @property
+    def feature_width(self):
+        return self.boxes.shape[-1]
+
 
 def ingest_directory(predictions_dir, labels_dir, feature_width: int,
                      containment_file=None, cache_dir=None) -> IngestedDataset:
@@ -316,7 +320,7 @@ def ingest_directory(predictions_dir, labels_dir, feature_width: int,
 
 def batches(dataset: IngestedDataset, batch_size: int):
     """Yield dense batch dicts in dataset order; the last may be smaller.
-    (The JAX package's shuffling options serve training, a later slice.)"""
+    (Training shuffles and pads its batches in `train/loop.py::DeviceDataset`.)"""
     count = len(dataset)
     idx = np.arange(count)
     for start in range(0, count, batch_size):

@@ -15,7 +15,7 @@ import torch
 
 from objectpermanence_tpu_torch import resolve_device
 from objectpermanence_tpu_torch.analysis.analyzer import write_bb_predictions
-from objectpermanence_tpu_torch.config import inference_config_from
+from objectpermanence_tpu_torch.config import config_device, inference_config_from
 from objectpermanence_tpu_torch.data.ingest import IngestedDataset, batches, ingest_directory
 from objectpermanence_tpu_torch.models.registry import ModelSpec, init_model
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
@@ -65,9 +65,7 @@ def reasoning_inference_main(model_name: str, results_dir: str, inference_config
     `<name>_bb.json` predictions. `device` defaults to the config's:
     "cpu" is the CPU, anything else (the shipped "tpu" too) the card."""
     cfg = inference_config_from(inference_config)
-    if device is None:
-        device = "cpu" if cfg.device == "cpu" else "cuda"
-    device = resolve_device(device)
+    device = resolve_device(config_device(cfg.device) if device is None else device)
 
     spec, model = init_model(model_name, model_config, checkpoint_path=cfg.model_path,
                              device=device)

@@ -27,9 +27,12 @@ class OPNet(nn.Module):
     over the selected boxes and a linear box head. All layers bias-free;
     submodule and parameter names follow the JAX pytree (`att_lstm.w_ih`...).
 
-    The whole forward is `ops/opnet_fused.py::opnet_fused_forward`: the
-    fused kernel on CUDA tensors, its plain step loop on CPU tensors. It is
-    for inference and records no gradient."""
+    `forward` is the whole net as `ops/opnet_fused.py::opnet_fused_forward`:
+    the fused kernel (K1) on CUDA tensors, its plain step loop on CPU
+    tensors; it is for inference and records no gradient. `forward_layers`
+    is the same function layer by layer (`opnet_apply`), which the train and
+    eval steps call: its LSTMs run on the recurrence kernels (K2/K3, or K4
+    without a gradient) on CUDA tensors."""
 
     def __init__(self, config: Dict[str, int], generator: torch.Generator = None):
         super().__init__()
@@ -46,3 +49,14 @@ class OPNet(nn.Module):
         return opnet_fused_forward(
             boxes, self.att_lstm.w_ih, self.att_lstm.w_hh, self.att_head.w,
             self.video_lstm.w_ih, self.video_lstm.w_hh, self.box_head.w)
+
+    def forward_layers(self, boxes: torch.Tensor):
+        """`boxes (B, T, 15, F)` -> `(y (B, T, 4), logits (B, 15, T))`, layer
+        by layer and differentiable."""
+        batch, frames, objects, feat = boxes.shape
+        att_h = self.att_lstm(boxes.reshape(batch, frames, objects * feat))
+        logits = self.att_head(att_h)                                    # (B, T, 15)
+        probs = torch.softmax(logits, dim=-1)
+        selected = torch.einsum("btof,bto->btf", boxes, probs)
+        y = self.box_head(self.video_lstm(selected))
+        return y, logits.transpose(1, 2)

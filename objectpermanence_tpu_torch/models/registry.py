@@ -1,8 +1,8 @@
 """Model registry, the counterpart of `objectpermanence_tpu/models/registry.py`:
 the same name lists, and the factory for the models ported so far.
 
-This slice ports the OPNet family (`opnet`, `opnet_no_labels`,
-`opnet_att_ce`). Every other name the JAX package knows raises
+The OPNet family (`opnet`, `opnet_no_labels`, `opnet_att_ce`) is
+ported, for inference and training. Every other name the JAX package knows raises
 NotImplementedError naming the ROADMAP.md item that ports it.
 """
 
@@ -80,10 +80,12 @@ def get_model_spec(name: str, config: Optional[Dict] = None) -> ModelSpec:
 
 
 def init_model(name: str, config: Dict[str, int], seed: int = 0,
-               checkpoint_path: Optional[str] = None, device=None):
+               checkpoint_path: Optional[str] = None, device=None, train: bool = False):
     """Build `(spec, model)` on `device` (the card unless "cpu"), in eval
-    mode; weights from `seed`, or from an npz checkpoint: a leaf file or a
-    tree of `<stamp>_<dev_miou>.npz` leaves resolved to its best one."""
+    mode or, with `train`, in train mode; weights from `seed`, or from an
+    npz checkpoint: a leaf file or a tree of `<stamp>_<dev_miou>.npz`
+    leaves resolved to its best one. `opnet_att_ce` takes its weight from
+    `config["att_ce_weight"]`, else 1.0, as the JAX registry does."""
     device = resolve_device(device)
     spec = get_model_spec(name, config)
     model = spec.build(config, torch.Generator().manual_seed(seed))
@@ -96,4 +98,4 @@ def init_model(name: str, config: Dict[str, int], seed: int = 0,
             checkpoint_path = resolved
         model.load_state_dict(load_params(checkpoint_path))
         print(f"Loaded model parameters from {checkpoint_path}")
-    return spec, model.to(device).eval()
+    return spec, model.to(device).train(train)

@@ -3,14 +3,19 @@
 Weights keep the JAX package's layout, `w_ih (D, 4H)` and `w_hh (H, 4H)`,
 gate order `[i, f, g, o]` along the 4H axis (torch.nn.LSTM's
 `weight_ih_l0.T` / `weight_hh_l0.T`), so parameters cross the weight
-bridge without a transpose. The recurrence is a plain time loop; its
-fused kernel (`lstm_scan_fused`) is ported in a later slice.
+bridge without a transpose. On CUDA tensors `LSTM` runs the recurrence on
+the kernels of `ops/lstm_scan.py`: `lstm_scan_fused` (K2 forward, K3
+backward) when a gradient is recorded, the forward-only K4 otherwise. On
+CPU tensors it runs `lstm_forward`, a plain time loop that autograd
+differentiates.
 """
 
 import math
 
 import torch
 from torch import nn
+
+from objectpermanence_tpu_torch.ops.lstm_scan import lstm_scan_fused, lstm_scan_pallas
 
 
 def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
@@ -49,4 +54,10 @@ class LSTM(nn.Module):
             torch.empty(hidden_dim, 4 * hidden_dim).uniform_(-k, k, generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return lstm_forward(x, self.w_ih, self.w_hh)
+        if x.device.type == "cpu":
+            return lstm_forward(x, self.w_ih, self.w_hh)
+        params = {"w_ih": self.w_ih, "w_hh": self.w_hh}
+        if torch.is_grad_enabled() and (x.requires_grad or self.w_ih.requires_grad
+                                        or self.w_hh.requires_grad):
+            return lstm_scan_fused(params, x)
+        return lstm_scan_pallas(params, x)

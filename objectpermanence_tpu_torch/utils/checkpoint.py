@@ -1,12 +1,15 @@
-"""Parameter checkpoints as `.npz` files, the counterpart of the params
-part of `objectpermanence_tpu/utils/checkpoint.py`.
+"""Checkpoints as `.npz` files, the counterpart of
+`objectpermanence_tpu/utils/checkpoint.py`.
 
 The JAX package saves orbax trees, which only JAX and orbax can read; the
 port saves a flat `state_dict` (`"att_lstm.w_ih"`, ...) with
 `np.savez_compressed`. A JAX checkpoint crosses over once, through
-`scripts/export_torch_weights.py`.
+`scripts/export_torch_weights.py`. A resumable training state is a
+directory with `state.npz` (the params and Adam's `exp_avg`, `exp_avg_sq`
+and `step` of each, keyed `<part>/<param name>`) and `metadata.json`.
 """
 
+import json
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -67,3 +70,54 @@ def best_params_checkpoint(checkpoint_dir) -> Optional[Path]:
     if not candidates:
         return None
     return max(candidates)[2]
+
+
+def save_train_state(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     metadata: dict) -> Path:
+    """Full resumable state: params + Adam's moments and step + host
+    metadata. Overwrites (a re-run after resume revisits epoch numbers)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    state = optimizer.state_dict()["state"]
+    arrays = {}
+    for index, (name, param) in enumerate(model.named_parameters()):
+        arrays[f"params/{name}"] = param.detach().cpu().numpy()
+        moments = state.get(index)
+        if moments is not None:
+            for key in ("exp_avg", "exp_avg_sq"):
+                arrays[f"{key}/{name}"] = moments[key].detach().cpu().numpy()
+            arrays[f"step/{name}"] = np.asarray(float(moments["step"]), np.float32)
+    with open(path / "state.npz", "wb") as f:
+        np.savez_compressed(f, **arrays)
+    (path / "metadata.json").write_text(json.dumps(metadata, default=float))
+    return path
+
+
+def restore_train_state(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
+    """Load a state written by `save_train_state` into `model` and
+    `optimizer` (built over `model.parameters()`); returns the metadata."""
+    path = Path(path)
+    with np.load(path / "state.npz", allow_pickle=False) as blob:
+        arrays = {key: blob[key] for key in blob.files}
+    names = [name for name, _ in model.named_parameters()]
+    model.load_state_dict({n: torch.from_numpy(arrays[f"params/{n}"]) for n in names})
+    state = {}
+    for index, name in enumerate(names):
+        if f"step/{name}" in arrays:
+            state[index] = {"step": torch.tensor(float(arrays[f"step/{name}"])),
+                            "exp_avg": torch.from_numpy(arrays[f"exp_avg/{name}"]),
+                            "exp_avg_sq": torch.from_numpy(arrays[f"exp_avg_sq/{name}"])}
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+    return json.loads((path / "metadata.json").read_text())
+
+
+def latest_checkpoint(checkpoint_dir) -> Optional[Path]:
+    """Most recent resumable checkpoint under `checkpoint_dir`, if any."""
+    checkpoint_dir = Path(checkpoint_dir)
+    if not checkpoint_dir.exists():
+        return None
+    candidates = [p for p in checkpoint_dir.iterdir() if (p / "metadata.json").exists()]
+    if not candidates:
+        return None
+    return max(candidates, key=lambda p: (p.stat().st_mtime, p.name))

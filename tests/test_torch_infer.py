@@ -140,7 +140,8 @@ def test_cli_inference_on_cpu(fixture_data, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["training", "--model_type", "opnet", "--model_config", "m", "--training_config", "t"],
+    ["training", "--model_type", "baseline_lstm", "--model_config", "m",
+     "--training_config", "t"],
     ["preprocess", "--results_dir", "r", "--config", "c"],
     ["analysis", "--predictions_dir", "p", "--labels_dir", "l", "--iou_thresholds", "0.5",
      "--output_file", "o"],

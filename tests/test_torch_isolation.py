@@ -61,6 +61,17 @@ def test_cpu_path_runs_without_jax(tmp_path):
         assert sorted(p.name for p in Path("out").glob("*_bb.json")) == [
             f"CATER_fixture_{i:06d}_bb.json" for i in range(3)]
         assert all(v.shape == (40, 4) for v in preds.values())
+        from objectpermanence_tpu_torch.data.ingest import ingest_directory
+        from objectpermanence_tpu_torch.models.registry import get_model_spec
+        from objectpermanence_tpu_torch.train.loop import training_main
+        data = ingest_directory(pred, labels, 6, "data/containment_annotations.txt")
+        paths = {k: "x" for k in ("train_sample_dir", "train_labels_dir",
+                                  "train_containment_file", "dev_sample_dir",
+                                  "dev_labels_dir", "dev_containment_file")}
+        result = training_main(get_model_spec("opnet_att_ce"), data, data,
+                               {**paths, "device": "cpu", "num_epochs": 1, "batch_size": 2,
+                                "checkpoints_path": "ckpt"}, config)
+        assert [h["epoch"] for h in result.history] == [1]
         leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
         assert not leaked, leaked
         print("ok")
@@ -70,6 +81,7 @@ def test_cpu_path_runs_without_jax(tmp_path):
 
 def test_entry_points_raise_without_a_card(tmp_path):
     out = _run("""
+        import json
         import torch
         assert not torch.cuda.is_available()
         from objectpermanence_tpu_torch.infer.reasoning import (
@@ -78,11 +90,25 @@ def test_entry_points_raise_without_a_card(tmp_path):
         spec = get_model_spec("opnet")
         config = {"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 16,
                   "videos_hidden_dim": 24}
+        from objectpermanence_tpu_torch.__main__ import main as cli_main
+        from objectpermanence_tpu_torch.train.loop import training_main
+        training = {k: "x" for k in ("train_sample_dir", "train_labels_dir",
+                                     "train_containment_file", "dev_sample_dir",
+                                     "dev_labels_dir", "dev_containment_file")}
+        training["device"] = "tpu"
+        with open("training.json", "w") as f:
+            json.dump(training, f)
+        with open("model.json", "w") as f:
+            json.dump(config, f)
         calls = [lambda: make_predict_step(spec),
                  lambda: init_model("opnet", config),
+                 lambda: init_model("opnet", config, train=True),
                  lambda: reasoning_inference_main(
                      "opnet", "out", {"sample_dir": "s", "labels_dir": "l",
-                                      "device": "tpu"}, config)]
+                                      "device": "tpu"}, config),
+                 lambda: training_main(spec, None, None, training, config),
+                 lambda: cli_main(["training", "--model_type", "opnet", "--model_config",
+                                   "model.json", "--training_config", "training.json"])]
         for call in calls:
             try:
                 call()
