@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1;
-`lstm_scan`: K2, K3, K4), holds each against its plain PyTorch version at
-the main paths' full-width shapes, drives both main paths through the
-port's CLI (OPNet inference over ingested detections, and OPNet training
-on a fixture dataset followed by inference from its best checkpoint),
-reading each kernel's launch count around each path, profiles one
-full-width train step, times every kernel beside its bound, its plain
-version and a library yardstick, and prints
-as its last line
+`lstm_scan`: K2, K3, K4; `roi_align`: K7, with K5/K6 as its one-image
+entries), holds each against its plain PyTorch version at the main paths'
+full-width shapes, drives the three main paths through the port's CLI
+(OPNet inference over ingested detections; OPNet training on a fixture
+dataset followed by inference from its best checkpoint; `preprocess`, the
+full-width Faster R-CNN over fixture videos, followed by OPNet inference
+over the pickles it wrote), reading each kernel's launch count around each
+path, profiles one full-width train step and one detector chunk, times
+every kernel beside its bound, its plain version and a library yardstick
+where there is one, and prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure exits non-zero before that line. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -31,6 +33,7 @@ REPO = Path(__file__).resolve().parent
 FLAGSHIP_NPZ = REPO / "objectpermanence_tpu_torch" / "assets" / "opnet_19-08-26_0.514.npz"
 BENCH_CACHE = REPO / "bench_data" / "cache" / "ingest_bench50.npz"
 WORK_DIR = REPO / "build" / "chip_smoke"
+PREPROCESS_CONFIG = REPO / "configs" / "preprocess_config.json"
 BATCH, FRAMES = 512, 300
 RAGGED_BATCH = 37
 MAIN_PATH_VIDEOS = 64
@@ -46,6 +49,12 @@ GRAD_RTOL = 1e-4
 PX_MAX, PX_SHARE = 1, 1e-3  # integer boxes: <= 1 px apart on <= 0.1% of coordinates
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# the detector at the shipped preprocess config (configs/preprocess_config.json)
+DETECTOR_VIDEOS, CHUNK = 3, 30
+DETECTOR_SEED = 21   # fixture scenes of the preprocess videos
+ROI_RTOL = 1e-4      # RoIAlign vs plain: 1e-4 x max(1, max |ref|), values reach 1e3
+BOX_PX = 0.25        # detections kernel vs plain RoIAlign: boxes within 0.25 px
+FRAME_FLIP_SHARE = 1e-3  # ... on all but at most 0.1% of frames
 
 
 def log(phase, **fields):
@@ -105,8 +114,12 @@ def reset_launches():
         lstm_scan_backward, lstm_scan_forward, lstm_scan_hs,
     )
     from objectpermanence_tpu_torch.ops.opnet_fused import opnet_fused_forward
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_single, roi_align_tiled,
+    )
     wrappers = {"K1": opnet_fused_forward, "K2": lstm_scan_forward, "K3": lstm_scan_backward,
-                "K4": lstm_scan_hs}
+                "K4": lstm_scan_hs, "K5": roi_align_single, "K6": roi_align_tiled,
+                "K7": roi_align_batched}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {tag: fn.launches for tag, fn in wrappers.items()}
@@ -116,7 +129,7 @@ def phase_build():
     from objectpermanence_tpu_torch.ops import _build
     from objectpermanence_tpu_torch.ops.lstm_scan import launch_plan
     t0 = time.perf_counter()
-    builds = _build.build("opnet_fused", "lstm_scan")
+    builds = _build.build("opnet_fused", "lstm_scan", "roi_align")
     for name, b in builds.items():
         log("build", kernel=name, seconds=f"{time.perf_counter() - t0:.2f}",
             nvcc_seconds=f"{b.seconds:.2f}", library=b.path.relative_to(REPO))
@@ -184,7 +197,8 @@ def phase_main_path(weights, device):
     launches = counts["K1"]
     assert rc == 0, f"CLI exit {rc}"
     assert launches > 0, "the main path did not launch the fused kernel"
-    assert counts["K2"] == counts["K3"] == counts["K4"] == 0, f"inference ran LSTM kernels: {counts}"
+    assert all(counts[k] == 0 for k in ("K2", "K3", "K4", "K5", "K6", "K7")), \
+        f"inference ran other kernels: {counts}"
 
     files = sorted(results.glob("*_bb.json"))
     assert len(files) == MAIN_PATH_VIDEOS, f"{len(files)} prediction files"
@@ -572,6 +586,337 @@ def phase_lstm_times(weights, device, launches, errors):
              "bound_by": rows[tag]["bound_by"], "library_ms": rows[tag]["library_ms"]}
             for tag, (name, site) in LSTM_KERNELS.items()]
 
+def detector_setup(device):
+    """A full-width detector at the shipped preprocess config, from the
+    port's seeded init (the repository holds no detector weights)."""
+    from objectpermanence_tpu_torch.config import preprocess_config_from
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    _, overrides = preprocess_config_from(json.loads(PREPROCESS_CONFIG.read_text()))
+    return CaterDetector(DetectorConfig(**overrides), device=device)
+
+
+def fixture_video(path):
+    """Stands in for `read_video_frames` (the card's machine has no cv2):
+    the 300 frames of fixture video `CATER_fixture_<v>`, its `make_scene`
+    scene drawn by `draw_frames`."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    v = int(Path(path).stem.rsplit("_", 1)[1])
+    return draw_frames(make_scene(DETECTOR_SEED * 1000 + v), seed=v)
+
+
+def detector_rois(detector, frames):
+    """P2..P5 and the proposals the detector makes of `frames`, with a few
+    edge cases written over image 0's first rois: sub-pixel, across and
+    beyond the image edge, 600 px, and an all-zero padding box."""
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        forward_features, preprocess_images, propose,
+    )
+    from objectpermanence_tpu_torch.models.detector.roi_heads import assign_levels
+    with torch.inference_mode():
+        images = torch.from_numpy(frames).to(detector.device)
+        pyramid = forward_features(detector.model, preprocess_images(images, detector.config))
+        proposals, _ = propose(detector.model, pyramid, detector.config, detector.anchors)
+    edge = torch.tensor([[10.2, 20.7, 10.6, 21.1], [-30.0, 200.0, 25.0, 260.0],
+                         [300.0, -50.0, 420.0, 10.0], [-5.0, -5.0, 595.0, 600.0],
+                         [0.0, 0.0, 0.0, 0.0], [319.5, 255.5, 320.0, 256.0]],
+                        device=proposals.device)
+    rois = proposals.clone()
+    rois[0, :len(edge)] = edge
+    return [p.detach() for p in pyramid[:4]], rois, assign_levels(rois)
+
+
+def roi_err(got, want):
+    err = (got - want).abs().max().item()
+    return err, ROI_RTOL * max(1.0, want.abs().max().item())
+
+
+def phase_roi_align_vs_plain(detector):
+    """K7 against its plain version at the detector's shapes (B=30 frames,
+    N=300 proposals, C=256, the native pyramid as the backbone leaves it) and ragged (B=7, N=123); K5 and K6 at B=1."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_batched_reference, roi_align_single, roi_align_tiled,
+    )
+    frames = fixture_video("CATER_fixture_000000")[:CHUNK]
+    feats, rois, levels = detector_rois(detector, frames)
+    errors = {}
+    cases = [("K7", CHUNK, rois.shape[1]), ("K7", 7, 123)]
+    for tag, batch, n in cases:
+        args = ([f[:batch] for f in feats], rois[:batch, :n].contiguous(),
+                levels[:batch, :n].contiguous(), ROI_STRIDES)
+        got = roi_align_batched(*args)
+        torch.cuda.synchronize()
+        want = roi_align_batched_reference(*args)
+        err, limit = roi_err(got, want)
+        log("roi_align_vs_plain", kernel=tag, batch=batch, rois=n, channels=feats[0].shape[1],
+            max_abs_err=err, limit=limit, max_abs_ref=want.abs().max().item(),
+            levels_used=sorted(set(args[2].flatten().tolist())))
+        assert torch.isfinite(got).all() and err <= limit, f"K7 disagrees at B={batch}, N={n}"
+        errors[tag] = max(errors.get(tag, 0.0), err)
+    one = ([f[0] for f in feats], rois[0].contiguous(), levels[0].contiguous(), ROI_STRIDES)
+    want = multilevel_roi_align(*one)
+    for tag, fn in (("K5", roi_align_single), ("K6", roi_align_tiled)):
+        got = fn(*one)
+        torch.cuda.synchronize()
+        err, limit = roi_err(got, want)
+        log("roi_align_vs_plain", kernel=tag, batch=1, rois=one[1].shape[0], max_abs_err=err,
+            limit=limit)
+        assert err <= limit, f"{tag} disagrees with plain"
+        errors[tag] = err
+    return errors, (feats, rois, levels)
+
+
+def read_pickles(results):
+    import pickle
+    out = {}
+    for path in sorted(Path(results).glob("*.pkl")):
+        with open(path, "rb") as f:
+            out[path.stem] = pickle.load(f)
+    return out
+
+
+def phase_preprocess_path(device):
+    """`python -m objectpermanence_tpu_torch preprocess` at the shipped config
+    on fixture videos, with the launch counts read around it; one video again
+    with the plain RoIAlign swapped in, as the comparison; then the pickles
+    through OPNet `inference` from the flagship weights."""
+    import objectpermanence_tpu_torch.models.detector.detector as det_module
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
+    from objectpermanence_tpu_torch.infer import preprocess
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_batched_reference
+
+    work = WORK_DIR / "preprocess_path"
+    shutil.rmtree(work, ignore_errors=True)
+    _, labels_dir, _ = write_fixture_dataset(work / "data", num_videos=DETECTOR_VIDEOS,
+                                             seed=DETECTOR_SEED)
+    names = sorted(p.name[:-len("_bb.json")] for p in labels_dir.glob("*_bb.json"))
+    videos = work / "videos"
+    videos.mkdir()
+    for name in names:
+        (videos / f"{name}.avi").touch()
+    config = {**json.loads(PREPROCESS_CONFIG.read_text()), "videos_dir": str(videos),
+              "device": "cuda"}
+    (work / "preprocess.json").write_text(json.dumps(config))
+    results = work / "results"
+    preprocess.read_video_frames = fixture_video
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_main(["preprocess", "--results_dir", str(results),
+                   "--config", str(work / "preprocess.json")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read()
+    assert rc == 0, f"preprocess CLI exit {rc}"
+    data = read_pickles(results)
+    assert sorted(data) == names, f"videos written: {sorted(data)} of {names}"
+    chunks = -(-FRAMES // config["batch_size"])
+    assert launches["K7"] == chunks * len(names), f"K7 launches {launches}"
+    assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")), launches
+    kept = 0
+    for name, video in data.items():
+        assert set(video) == {"bb", "labels"} and len(video["bb"]) == len(video["labels"]) == FRAMES
+        for bb, labels in zip(video["bb"], video["labels"]):
+            assert bb.dtype == np.float32 and labels.dtype == np.int64
+            assert bb.shape == (len(labels), 4) and np.isfinite(bb).all()
+            kept += len(bb)
+    assert kept > 0, "the detector kept no detection"
+
+    # the same first video with the plain RoIAlign in the kernel's place
+    (work / "sample.txt").write_text(f"{names[0]}\n")
+    kernel_fn = det_module.roi_align_batched
+    det_module.roi_align_batched = roi_align_batched_reference
+    try:
+        preprocess.preprocess_main(str(work / "plain"),
+                                   {**config, "sample_file": str(work / "sample.txt")})
+    finally:
+        det_module.roi_align_batched = kernel_fn
+    plain = read_pickles(work / "plain")[names[0]]
+    ours = data[names[0]]
+    flipped, box_diff = 0, 0.0
+    for bb, labels, pbb, plabels in zip(ours["bb"], ours["labels"], plain["bb"], plain["labels"]):
+        if len(labels) != len(plabels) or not np.array_equal(labels, plabels):
+            flipped += 1
+        elif len(bb):
+            box_diff = max(box_diff, float(np.abs(bb - pbb).max()))
+    log("preprocess_path", videos=len(names), frames=FRAMES, batch_size=config["batch_size"],
+        seconds=f"{seconds:.3f}", frames_per_s=len(names) * FRAMES / seconds,
+        launches=json.dumps(launches), kept_detections=kept,
+        kept_per_frame=kept / (len(names) * FRAMES), plain_roi_flipped_frames=flipped,
+        plain_roi_max_box_diff_px=box_diff)
+    assert flipped <= FRAME_FLIP_SHARE * FRAMES, f"{flipped} frames differ from plain RoIAlign"
+    assert box_diff <= BOX_PX, f"boxes {box_diff} px from plain RoIAlign"
+
+    # the two-stage path: the pickles through OPNet inference (K1)
+    shipped_inf = json.loads((REPO / "configs" / "inference_config.json").read_text())
+    tree = work / "checkpoints" / "opnet"
+    tree.mkdir(parents=True)
+    shutil.copy(FLAGSHIP_NPZ, tree / "19-08-26_0.514.npz")
+    inference_config = {**shipped_inf, "sample_dir": str(results), "labels_dir": str(labels_dir),
+                        "model_path": str(tree), "videos_dir": None, "device": "cuda",
+                        "cache_dir": str(work / "cache")}
+    (work / "inference.json").write_text(json.dumps(inference_config))
+    read = reset_launches()
+    rc = cli_main(["inference", "--model_type", "opnet", "--results_dir", str(work / "bb"),
+                   "--inference_config", str(work / "inference.json"),
+                   "--model_config", str(REPO / "configs" / "opnet_model_config.json")])
+    torch.cuda.synchronize()
+    two_stage = read()
+    files = sorted((work / "bb").glob("*_bb.json"))
+    log("two_stage_inference", videos=len(files), launches=json.dumps(two_stage))
+    assert rc == 0 and len(files) == len(names), f"two-stage inference: rc {rc}, {len(files)} files"
+    assert two_stage["K1"] > 0 and two_stage["K7"] == 0, f"two-stage launches {two_stage}"
+    boxes = np.stack([np.array(json.loads(f.read_text())) for f in files])
+    assert boxes.shape == (len(names), FRAMES, 4) and boxes.dtype.kind == "i"
+    return launches
+
+
+def phase_detect_profile(detector, chunks=5, profile_chunks=3):
+    """Where a 30-frame chunk of the detector spends its time: the four
+    stages by CUDA events around each (the RPN's and postprocess's NMS rounds
+    wait on the host once per round), the whole call by the host clock
+    (frames up, detections down), then the device's busy share over a
+    torch.profiler window of whole calls."""
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        batched_roi_align, forward_features, preprocess_images, propose,
+    )
+    from objectpermanence_tpu_torch.models.detector.roi_heads import postprocess_detections
+    cfg, model = detector.config, detector.model
+    frames = fixture_video("CATER_fixture_000001")[:CHUNK]
+    images = torch.from_numpy(frames).to(detector.device)
+
+    def staged():
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        with torch.inference_mode():
+            events[0].record()
+            pyramid = forward_features(model, preprocess_images(images, cfg))
+            events[1].record()
+            proposals, scores = propose(model, pyramid, cfg, detector.anchors)
+            events[2].record()
+            pooled = batched_roi_align(pyramid[:4], proposals, cfg)
+            events[3].record()
+            logits, deltas = model.roi_heads(pooled)
+            postprocess_detections(logits, deltas, proposals, scores, cfg.padded_hw,
+                                   cfg.score_thresh, cfg.nms_thresh, cfg.detections_per_img)
+            events[4].record()
+        torch.cuda.synchronize()
+        return [events[i].elapsed_time(events[i + 1]) for i in range(4)]
+
+    for _ in range(2):
+        staged()
+    runs = np.array([staged() for _ in range(chunks)])
+    stage_ms = dict(zip(("backbone_fpn", "rpn_proposals", "roi_align_k7",
+                         "box_head_postprocess"), runs.mean(0).tolist()))
+    detector(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        detector(frames)
+    chunk_ms = (time.perf_counter() - t0) / chunks * 1e3
+
+    # the pyramid's layout: NCHW (the detector's: cuDNN's native fp32
+    # layout, and K7's wrapper copies P2-P5 to NHWC) against channels_last
+    # (NHWC in memory, what K7 reads, but cuDNN transposes around its fp32
+    # convolutions), backbone+FPN and K7 together, in turns
+    with torch.inference_mode():
+        proposals, _ = propose(model, forward_features(model, preprocess_images(images, cfg)),
+                               cfg, detector.anchors)
+
+    def backbone_and_roi(memory_format):
+        with torch.inference_mode():
+            x = preprocess_images(images, cfg).contiguous(memory_format=memory_format)
+            batched_roi_align(model.backbone(x)[:4], proposals, cfg)
+
+    layouts = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
+    layout_runs = {name: [] for name in layouts}
+    for name in ("channels_last", "nchw", "nchw", "channels_last"):
+        layout_runs[name].append(time_ms(lambda: backbone_and_roi(layouts[name]), iters=5))
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profile_chunks):
+            detector(frames)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            name = event.name.replace("(anonymous namespace)::", "").split("(")[0]
+            kernels[name] = kernels.get(name, 0.0) + event.device_time / 1e3
+    busy_ms = sum(kernels.values())
+    assert busy_ms > 0, "the profiler saw no device time"
+    per_chunk = {name[:60]: ms / profile_chunks
+                 for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
+    log("detect_profile", frames=CHUNK, stage_ms=json.dumps(stage_ms),
+        stages_sum_ms=sum(stage_ms.values()), chunk_ms=chunk_ms,
+        frames_per_s=CHUNK / (chunk_ms / 1e3), window_ms=window_ms,
+        device_busy_share=busy_ms / window_ms, per_chunk_ms=json.dumps(per_chunk),
+        backbone_fpn_k7_ms_by_layout=json.dumps(layout_runs))
+
+
+ROI_KERNELS = {
+    "K5": ("roi_align_single", "objectpermanence_tpu/ops/pallas_roi_align.py:290"),
+    "K6": ("roi_align_tiled", "objectpermanence_tpu/ops/pallas_roi_align.py:468"),
+    "K7": ("roi_align_batched", "objectpermanence_tpu/ops/pallas_roi_align.py:679"),
+}
+
+
+def phase_roi_times(inputs, launches, errors):
+    """K7 at the detector's B=30, N=300 and K5/K6 at B=1, N=300, each beside
+    its bound (scripts/kernel_bounds.py at these shapes) and its plain
+    version, in turns: plain, kernel, kernel, plain. `ms` is the wrapper's
+    time on the NCHW levels the detector gives it, their copy to NHWC
+    included; `nhwc_ms`, logged beside it, the same call on levels already
+    NHWC in memory. No single PyTorch call computes RoIAlign (torchvision,
+    which has one, is not installed), so library_ms is null."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
+    sys.path.insert(0, str(REPO / "scripts"))
+    import kernel_bounds as kb
+    feats, rois, levels = inputs
+    nhwc = [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    channels = feats[0].shape[1]
+
+    def args(tag, levels_in):
+        if tag == "K7":
+            return (levels_in, rois, levels, ROI_STRIDES), rois.shape[0]
+        return ([f[0] for f in levels_in], rois[0].contiguous(), levels[0].contiguous(),
+                ROI_STRIDES), 1
+
+    kernels = {"K5": rk.roi_align_single, "K6": rk.roi_align_tiled, "K7": rk.roi_align_batched}
+    rows = []
+    for tag in ("K5", "K6", "K7"):
+        (main_args, images), (nhwc_args, _) = args(tag, feats), args(tag, nhwc)
+        kernel = kernels[tag]
+        plain = rk.roi_align_batched_reference if tag == "K7" else multilevel_roi_align
+        with torch.inference_mode():
+            plain_a = time_ms(lambda: plain(*main_args), iters=3, warmup=1)
+            kernel_a = time_ms(lambda: kernel(*main_args), iters=20)
+            nhwc_ms = time_ms(lambda: kernel(*nhwc_args), iters=20)
+            kernel_b = time_ms(lambda: kernel(*main_args), iters=20)
+            plain_b = time_ms(lambda: plain(*main_args), iters=3, warmup=1)
+        _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=images, channels=channels)
+        t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
+        row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
+               "nhwc_ms": nhwc_ms,
+               "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log("times", kernel=tag, images=images, rois=rois.shape[1], channels=channels,
+            mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row)
+        name, site = ROI_KERNELS[tag]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "objectpermanence_tpu_torch/csrc/roi_align.cu", "replaces": site,
+                     "launches": launches[tag], "max_abs_err": errors[tag], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": None})
+    return rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -590,11 +935,16 @@ def main() -> int:
     max_abs_err = compare_kernel(BATCH, weights, device)
     compare_kernel(RAGGED_BATCH, weights, device)
     lstm_errors = phase_lstm_vs_plain(weights, device)
+    detector = detector_setup(device)
+    roi_errors, roi_inputs = phase_roi_align_vs_plain(detector)
     launches = phase_main_path(weights, device)
     train_launches = phase_train_path(device)
+    preprocess_launches = phase_preprocess_path(device)
     phase_train_step_profile(device)
+    phase_detect_profile(detector)
     kernels = [phase_times(weights, device, launches, max_abs_err)]
     kernels += phase_lstm_times(weights, device, train_launches, lstm_errors)
+    kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

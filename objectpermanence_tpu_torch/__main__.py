@@ -1,8 +1,9 @@
 """CLI of the port: `python -m objectpermanence_tpu_torch <mode> ...`.
 
-The same subcommands and flags as the JAX package's `main.py`. `inference`
-and `training` are ported for the OPNet family; every other mode, and
-every model not ported yet, exits non-zero saying so.
+The same subcommands and flags as the JAX package's `main.py`. Ported:
+`inference` and `training` for the OPNet family, and `preprocess` (the
+Faster R-CNN detector over videos). `analysis` and `cater_inference`, and
+every model not ported yet, exit non-zero saying so.
 """
 
 import argparse
@@ -74,9 +75,13 @@ def main(argv=None) -> int:
     if mode is None:
         parser.print_help()
         return 0
+    if mode == "preprocess":
+        from objectpermanence_tpu_torch.infer.preprocess import preprocess_main
+        preprocess_main(args.results_dir, _load_json(args.config))
+        return 0
     if mode not in ("inference", "training"):
-        print(f"{mode}: not yet ported to PyTorch; see ROADMAP.md, Next slices",
-              file=sys.stderr)
+        print(f"{mode}: not yet ported to PyTorch (ported: inference, training, "
+              f"preprocess); see ROADMAP.md, Next slices", file=sys.stderr)
         return 2
     try:
         spec = get_model_spec(args.model_type)

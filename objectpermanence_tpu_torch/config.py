@@ -1,5 +1,5 @@
 """Typed configuration, the port's copy of `objectpermanence_tpu/config.py`
-(the training and inference parts).
+(the training, inference and preprocess parts).
 
 The JSON files in the repository's `configs/` parse into dataclasses:
 unknown keys fail loudly, missing keys get defaults or a clear error. Key
@@ -10,7 +10,7 @@ import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 CONFIGS_DIR = Path(__file__).resolve().parent.parent / "configs"
 
@@ -118,3 +118,31 @@ def inference_config_from(data) -> InferenceConfig:
     if isinstance(data, InferenceConfig):
         return data
     return _from_dict(InferenceConfig, dict(data), "inference_config")
+
+
+@dataclass(frozen=True)
+class PreprocessConfig:
+    """Mirrors `configs/preprocess_config.json`, less the detector's own
+    fields. `device` is "cpu" for the CPU; any other value means the card."""
+    videos_dir: str
+    od_model_weights: Optional[str] = None
+    batch_size: int = 16
+    sample_file: Optional[str] = None
+    pipeline_depth: int = 2         # videos decoded ahead of the card
+    device: str = ""
+
+
+def preprocess_config_from(data) -> Tuple[PreprocessConfig, Dict[str, Any]]:
+    """A preprocess config -> (PreprocessConfig, DetectorConfig overrides):
+    any `DetectorConfig` field may be set beside the run's own keys (lists
+    become tuples); any other key fails."""
+    from objectpermanence_tpu_torch.models.detector.detector import DetectorConfig
+    data = dict(data)
+    detector_fields = {f.name for f in dataclasses.fields(DetectorConfig)}
+    overrides = {key: tuple(value) if isinstance(value, list) else value
+                 for key, value in data.items() if key in detector_fields}
+    run_keys = {key: value for key, value in data.items() if key not in detector_fields}
+    cfg = _from_dict(PreprocessConfig, run_keys, "preprocess_config")
+    if cfg.batch_size < 1 or cfg.pipeline_depth < 1:
+        raise ConfigError("batch_size and pipeline_depth must be >= 1")
+    return cfg, overrides

@@ -113,6 +113,26 @@ def make_scene(seed: int, num_frames: int = VIDEO_NUM_FRAMES,
     }
 
 
+def draw_frames(scene: Dict[str, np.ndarray], seed: int = 0) -> np.ndarray:
+    """(T, 240, 320, 3) uint8 RGB frames of a `make_scene` scene, as input
+    for the detector: a textured grey floor with fresh sensor noise in every
+    frame, and each visible object a filled box in its class's colour,
+    shaded top to bottom."""
+    rng = np.random.RandomState(seed)
+    floor = rng.randint(90, 150, (FRAME_HEIGHT, FRAME_WIDTH, 3))
+    boxes, classes, visible = scene["boxes"], scene["classes"], scene["visible"]
+    colours = [np.random.RandomState(1000 + int(c)).randint(20, 236, 3) for c in classes]
+    frames = np.empty((len(boxes), FRAME_HEIGHT, FRAME_WIDTH, 3), np.uint8)
+    for t in range(len(boxes)):
+        frame = floor + rng.randint(-8, 9, floor.shape)
+        for k in np.flatnonzero(visible[t]):
+            x1, y1, x2, y2 = np.round(boxes[t, k]).astype(int)
+            shade = np.linspace(1.15, 0.8, max(y2 - y1, 1))[:, None, None]
+            frame[y1:y2, x1:x2] = colours[k] * shade
+        frames[t] = np.clip(frame, 0, 255)
+    return frames
+
+
 def write_fixture_dataset(root, num_videos: int = 8, seed: int = 0,
                           num_frames: int = VIDEO_NUM_FRAMES,
                           num_objects: int = 6) -> Tuple[Path, Path, Path]:

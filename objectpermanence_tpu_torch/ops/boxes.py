@@ -1,7 +1,8 @@
 """Box geometry, the counterpart of `objectpermanence_tpu/ops/boxes.py`.
 
 Boxes are `[x1, y1, x2, y2]` in pixels or normalized by `FRAME_SHAPES`;
-IoU keeps the reference pipeline's +1 pixel-area convention.
+`iou_xyxy` keeps the reference pipeline's +1 pixel-area convention,
+`pairwise_iou_xyxy` the detector's zero-area one.
 """
 
 import numpy as np
@@ -35,3 +36,21 @@ def iou_xyxy(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     area_a = (boxes_a[..., 2] - boxes_a[..., 0] + 1) * (boxes_a[..., 3] - boxes_a[..., 1] + 1)
     area_b = (boxes_b[..., 2] - boxes_b[..., 0] + 1) * (boxes_b[..., 3] - boxes_b[..., 1] + 1)
     return inter / (area_a + area_b - inter)
+
+
+def pairwise_iou_xyxy(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """All-pairs IoU: (..., N, 4) x (..., M, 4) -> (..., N, M), batched over
+    any leading dimensions. Zero-area convention (no +1), as detection NMS
+    and matching use it."""
+    a = boxes_a[..., :, None, :]
+    b = boxes_b[..., None, :, :]
+    xa = torch.maximum(a[..., 0], b[..., 0])
+    ya = torch.maximum(a[..., 1], b[..., 1])
+    xb = torch.minimum(a[..., 2], b[..., 2])
+    yb = torch.minimum(a[..., 3], b[..., 3])
+    inter = (xb - xa).clamp(min=0) * (yb - ya).clamp(min=0)
+    area_a = (a[..., 2] - a[..., 0]).clamp(min=0) * (a[..., 3] - a[..., 1]).clamp(min=0)
+    area_b = (b[..., 2] - b[..., 0]).clamp(min=0) * (b[..., 3] - b[..., 1]).clamp(min=0)
+    union = area_a + area_b - inter
+    return torch.where(union > 0, inter / union, torch.zeros((), dtype=inter.dtype,
+                                                            device=inter.device))

@@ -2,7 +2,8 @@
 `objectpermanence_tpu/utils/checkpoint.py`.
 
 The JAX package saves orbax trees, which only JAX and orbax can read; the
-port saves a flat `state_dict` (`"att_lstm.w_ih"`, ...) with
+port saves a flat `state_dict` (`"att_lstm.w_ih"`, ...; for the detector,
+torchvision's names, `"backbone.body.conv1.weight"`, ...) with
 `np.savez_compressed`. A JAX checkpoint crosses over once, through
 `scripts/export_torch_weights.py`. A resumable training state is a
 directory with `state.npz` (the params and Adam's `exp_avg`, `exp_avg_sq`

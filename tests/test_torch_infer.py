@@ -142,7 +142,7 @@ def test_cli_inference_on_cpu(fixture_data, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["training", "--model_type", "baseline_lstm", "--model_config", "m",
      "--training_config", "t"],
-    ["preprocess", "--results_dir", "r", "--config", "c"],
+    ["training", "--model_type", "opnet_moe", "--model_config", "m", "--training_config", "t"],
     ["analysis", "--predictions_dir", "p", "--labels_dir", "l", "--iou_thresholds", "0.5",
      "--output_file", "o"],
     ["cater_inference", "--results_dir", "r", "--inference_config", "i"],

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither jax nor the JAX package, and its
 entry points run on the card unless asked for the CPU.
 
-Each check runs in a fresh interpreter where `import jax` (and orbax) is
-made to fail, so an import anywhere in the port would break it.
+Each check runs in a fresh interpreter where `import jax` (and orbax, and
+cv2, which only `read_video_frames` imports, at its first call) is made to
+fail, so such an import anywhere in the port would break it.
 """
 
 import os
@@ -17,6 +18,7 @@ _PRELUDE = """
 import sys
 sys.modules["jax"] = None
 sys.modules["orbax"] = None
+sys.modules["cv2"] = None
 sys.path.insert(0, {repo!r})
 """
 
@@ -80,6 +82,7 @@ def test_cpu_path_runs_without_jax(tmp_path):
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
+    shipped = str(REPO / "configs" / "preprocess_config.json")
     out = _run("""
         import json
         import torch
@@ -92,6 +95,10 @@ def test_entry_points_raise_without_a_card(tmp_path):
                   "videos_hidden_dim": 24}
         from objectpermanence_tpu_torch.__main__ import main as cli_main
         from objectpermanence_tpu_torch.train.loop import training_main
+        from objectpermanence_tpu_torch.infer.preprocess import preprocess_main
+        from objectpermanence_tpu_torch.models.detector import CaterDetector
+        with open("preprocess.json", "w") as f:  # the shipped config: the card
+            json.dump(json.load(open({shipped!r})), f)
         training = {k: "x" for k in ("train_sample_dir", "train_labels_dir",
                                      "train_containment_file", "dev_sample_dir",
                                      "dev_labels_dir", "dev_containment_file")}
@@ -108,7 +115,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
                                       "device": "tpu"}, config),
                  lambda: training_main(spec, None, None, training, config),
                  lambda: cli_main(["training", "--model_type", "opnet", "--model_config",
-                                   "model.json", "--training_config", "training.json"])]
+                                   "model.json", "--training_config", "training.json"]),
+                 lambda: CaterDetector(),
+                 lambda: preprocess_main("out", {"videos_dir": "v"}),
+                 lambda: cli_main(["preprocess", "--results_dir", "out", "--config",
+                                   "preprocess.json"])]
         for call in calls:
             try:
                 call()
@@ -116,6 +127,36 @@ def test_entry_points_raise_without_a_card(tmp_path):
                 assert "no CUDA device" in str(exc), exc
             else:
                 raise AssertionError("ran without a card")
+        print("ok")
+    """.replace("{shipped!r}", repr(shipped)), tmp_path)
+    assert out.strip().endswith("ok")
+
+
+def test_preprocess_cpu_path_runs_without_jax_or_cv2(tmp_path):
+    out = _run("""
+        import pickle
+        from pathlib import Path
+        import numpy as np
+        from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+        from objectpermanence_tpu_torch.infer import preprocess
+        Path("videos").mkdir()
+        for name in ("CATER_new_000001", "CATER_new_000002"):
+            (Path("videos") / f"{name}.avi").touch()
+        preprocess.read_video_frames = lambda path: draw_frames(
+            make_scene(int(Path(path).stem[-1]), num_frames=300))[:, ::4, ::4]
+        config = {"videos_dir": "videos", "batch_size": 150, "device": "cpu",
+                  "image_hw": [60, 80], "min_size": 64, "max_size": 96,
+                  "backbone_layers": [1, 1, 1, 1], "backbone_width": 8,
+                  "fpn_channels": 16, "rpn_pre_nms_top_n": 50, "rpn_post_nms_top_n": 20,
+                  "detections_per_img": 5}
+        written = preprocess.preprocess_main("out", config)
+        assert written == ["CATER_new_000001", "CATER_new_000002"], written
+        data = pickle.load(open("out/CATER_new_000001.pkl", "rb"))
+        assert set(data) == {"bb", "labels"} and len(data["bb"]) == 300
+        assert all(b.dtype == np.float32 and b.shape[1:] == (4,) for b in data["bb"])
+        assert sys.modules["cv2"] is None and sys.modules["jax"] is None
+        leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
+        assert not leaked, leaked
         print("ok")
     """, tmp_path)
     assert out.strip().endswith("ok")

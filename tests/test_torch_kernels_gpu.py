@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-fused OPNet forward (K1) and the LSTM recurrence forward, backward and
-forward-only kernels (K2, K3, K4).
+fused OPNet forward (K1), the LSTM recurrence forward, backward and
+forward-only kernels (K2, K3, K4), and multilevel RoIAlign (K7, and K5/K6,
+its one-image entry points).
 
 Marked `gpu`; without a CUDA card each test skips (decided inside the
 test). On a machine with an H100 and the CUDA toolkit:
@@ -15,7 +16,8 @@ kernel and `opnet_forward_reference` run the same float32 arithmetic with
 sums in another order: atol 1e-4 on `y` and the logits, and integer pixel
 boxes at most 1 px apart on at most 0.1% of the coordinates. The LSTM
 kernels hold `hs`, `cs` and `dxproj` at atol 1e-4 and `dW_hh` at 1e-4 x
-max(1, max |reference|), since it sums B x T terms.
+max(1, max |reference|), since it sums B x T terms. RoIAlign holds its
+output at 1e-4 x max(1, max |reference|): the pyramid's values reach 1e3.
 """
 
 from pathlib import Path
@@ -159,3 +161,78 @@ def test_train_step_on_cuda_runs_the_lstm_kernels_not_k1():
     make_eval_step(spec)(model, boxes, labels, mask)
     torch.cuda.synchronize()
     assert counts()[3] == after[3] + 2 and counts()[:3] == after[:3]  # eval: K4 only
+
+
+def _pyramid(batch, n, device, channels=256, seed=0):
+    """Random levels of the native 256 x 320 pyramid and rois of every size
+    class (sub-pixel, across the edge, up to 600 px), with their levels."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import assign_levels
+    rng = np.random.RandomState(seed)
+    feats = [torch.from_numpy(rng.standard_normal((batch, channels, h, w)).astype(np.float32)
+                              * 300).to(device)
+             for h, w in ((64, 80), (32, 40), (16, 20), (8, 10))]
+    xy = rng.uniform(-40, 320, (batch, n, 2))
+    wh = np.exp(rng.uniform(np.log(0.3), np.log(600), (batch, n, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).to(device)
+    return feats, rois, assign_levels(rois)
+
+
+def _roi_limit(want):
+    return 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n", [(30, 300), (7, 123), (1, 1)])
+def test_roi_align_batched_matches_plain(batch, n):
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_batched_reference,
+    )
+    device = _card()
+    feats, rois, levels = _pyramid(batch, n, device, seed=n)
+    nhwc = [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    before = roi_align_batched.launches
+    got = roi_align_batched(feats, rois, levels, ROI_STRIDES)
+    got_nhwc = roi_align_batched(nhwc, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_batched.launches == before + 2
+    want = roi_align_batched_reference(feats, rois, levels, ROI_STRIDES)
+    assert got.shape == (batch, n, 256, 7, 7) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= _roi_limit(want)
+    assert torch.equal(got, got_nhwc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["roi_align_single", "roi_align_tiled"])
+@pytest.mark.parametrize("n", [300, 17])
+def test_roi_align_one_image_entries_match_plain(entry, n):
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel
+    from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
+    device = _card()
+    feats, rois, levels = _pyramid(1, n, device, seed=n + 1)
+    args = ([f[0] for f in feats], rois[0], levels[0], ROI_STRIDES)
+    fn = getattr(roi_align_kernel, entry)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = multilevel_roi_align(*args)
+    assert got.shape == (n, 256, 7, 7)
+    assert (got - want).abs().max().item() <= _roi_limit(want)
+
+
+@pytest.mark.gpu
+def test_detector_on_cuda_goes_through_k7():
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_batched
+    _card()
+    config = DetectorConfig(min_size=240, max_size=320, rpn_pre_nms_top_n=500,
+                            rpn_post_nms_top_n=300)
+    detector = CaterDetector(config)
+    frames = draw_frames(make_scene(0, num_frames=30))
+    before = roi_align_batched.launches
+    boxes, labels, scores, valid = detector.detect_video(frames, batch_size=30)
+    assert roi_align_batched.launches == before + 1
+    assert boxes.shape == (30, 100, 4) and np.isfinite(boxes[valid]).all()
