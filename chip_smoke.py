@@ -4,15 +4,19 @@
 
 Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1;
 `lstm_scan`: K2, K3, K4; `roi_align`: K7, with K5/K6 as its one-image
-entries), holds each against its plain PyTorch version at the main paths'
-full-width shapes, drives the three main paths through the port's CLI
+entries, and K8, its backward), holds each against its plain PyTorch
+version at the main paths' full-width shapes, drives the four main paths
 (OPNet inference over ingested detections; OPNet training on a fixture
 dataset followed by inference from its best checkpoint; `preprocess`, the
 full-width Faster R-CNN over fixture videos, followed by OPNet inference
-over the pickles it wrote), reading each kernel's launch count around each
-path, profiles one full-width train step and one detector chunk, times
-every kernel beside its bound, its plain version and a library yardstick
-where there is one, and prints as its last line
+over the pickles it wrote, all three through the port's CLI; Faster R-CNN
+training through `train_detector` at the dettrain recipe's full width,
+resumed, then detection from its best checkpoint), reading each kernel's
+launch count around each path, runs one detector train step again with the
+plain RoIAlign swapped in, profiles one full-width train step of OPNet and
+of the detector and one detector chunk, times every kernel beside its
+bound, its plain version and a library yardstick where there is one, and
+prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure exits non-zero before that line. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -53,6 +57,15 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 DETECTOR_VIDEOS, CHUNK = 3, 30
 DETECTOR_SEED = 21   # fixture scenes of the preprocess videos
 ROI_RTOL = 1e-4      # RoIAlign vs plain: 1e-4 x max(1, max |ref|), values reach 1e3
+# detector training at the dettrain recipe (scripts/two_stage_run.py): GroupNorm
+# ResNet-50 FPN 256, 240 x 320 frames, RPN 500/300, batch 8, SGD lr 5e-3; cut to
+# 3 epochs (2, then a resume) of 48 + 16 fixture frames (24 + 8 scenes, 2 frames
+# each) from 16 epochs of the rendered 3,200-video set
+DETTRAIN = dict(min_size=240, max_size=320, backbone_norm="group", rpn_pre_nms_top_n=500,
+                rpn_post_nms_top_n=300)
+DET_BATCH, DET_LR, DET_TRAIN_SCENES, DET_DEV_SCENES, DET_EPOCHS = 8, 5e-3, 24, 8, 2
+DET_ROIS = 320       # 300 proposals + 20 ground-truth boxes per image
+LOSS_RTOL = 1e-5     # swap step: loss parts, relative
 BOX_PX = 0.25        # detections kernel vs plain RoIAlign: boxes within 0.25 px
 FRAME_FLIP_SHARE = 1e-3  # ... on all but at most 0.1% of frames
 
@@ -108,6 +121,20 @@ def phase_device():
     return name, count, smi
 
 
+def device_kernel_ms(prof):
+    """Device milliseconds by kernel name (without its argument list) in a
+    torch.profiler window; the GPU spans of `record_function` annotations
+    (such as `Optimizer.step#SGD.step`) cover kernels already counted and
+    are left out."""
+    kernels = {}
+    for event in prof.events():
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(event, "is_user_annotation", False)):
+            name = event.name.replace("(anonymous namespace)::", "").split("(")[0]
+            kernels[name] = kernels.get(name, 0.0) + event.device_time / 1e3
+    return kernels
+
+
 def reset_launches():
     """Every kernel wrapper's launch count to 0; returns a reader of them."""
     from objectpermanence_tpu_torch.ops.lstm_scan import (
@@ -115,11 +142,11 @@ def reset_launches():
     )
     from objectpermanence_tpu_torch.ops.opnet_fused import opnet_fused_forward
     from objectpermanence_tpu_torch.ops.roi_align_kernel import (
-        roi_align_batched, roi_align_single, roi_align_tiled,
+        roi_align_batched, roi_align_batched_backward, roi_align_single, roi_align_tiled,
     )
     wrappers = {"K1": opnet_fused_forward, "K2": lstm_scan_forward, "K3": lstm_scan_backward,
                 "K4": lstm_scan_hs, "K5": roi_align_single, "K6": roi_align_tiled,
-                "K7": roi_align_batched}
+                "K7": roi_align_batched, "K8": roi_align_batched_backward}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {tag: fn.launches for tag, fn in wrappers.items()}
@@ -197,7 +224,7 @@ def phase_main_path(weights, device):
     launches = counts["K1"]
     assert rc == 0, f"CLI exit {rc}"
     assert launches > 0, "the main path did not launch the fused kernel"
-    assert all(counts[k] == 0 for k in ("K2", "K3", "K4", "K5", "K6", "K7")), \
+    assert all(counts[k] == 0 for k in ("K2", "K3", "K4", "K5", "K6", "K7", "K8")), \
         f"inference ran other kernels: {counts}"
 
     files = sorted(results.glob("*_bb.json"))
@@ -552,11 +579,7 @@ def phase_train_step_profile(device, steps=20, profile_steps=5):
     with torch.profiler.profile(activities=activities) as prof:
         window_ms = time_ms(lambda: step(model, boxes, labels, mask, weights),
                             iters=profile_steps, warmup=0) * profile_steps
-    kernels = {}  # device ms by kernel name, without its argument list
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            name = event.name.replace("(anonymous namespace)::", "").split("(")[0]
-            kernels[name] = kernels.get(name, 0.0) + event.device_time / 1e3
+    kernels = device_kernel_ms(prof)
     per_step = {name: ms / profile_steps
                 for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])}
     busy_ms = sum(kernels.values())
@@ -714,7 +737,7 @@ def phase_preprocess_path(device):
     assert sorted(data) == names, f"videos written: {sorted(data)} of {names}"
     chunks = -(-FRAMES // config["batch_size"])
     assert launches["K7"] == chunks * len(names), f"K7 launches {launches}"
-    assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")), launches
+    assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8")), launches
     kept = 0
     for name, video in data.items():
         assert set(video) == {"bb", "labels"} and len(video["bb"]) == len(video["labels"]) == FRAMES
@@ -841,11 +864,7 @@ def phase_detect_profile(detector, chunks=5, profile_chunks=3):
             detector(frames)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            name = event.name.replace("(anonymous namespace)::", "").split("(")[0]
-            kernels[name] = kernels.get(name, 0.0) + event.device_time / 1e3
+    kernels = device_kernel_ms(prof)
     busy_ms = sum(kernels.values())
     assert busy_ms > 0, "the profiler saw no device time"
     per_chunk = {name[:60]: ms / profile_chunks
@@ -918,6 +937,329 @@ def phase_roi_times(inputs, launches, errors):
     return rows
 
 
+def detection_sets(work):
+    """The detector training path's data: 48 train and 16 dev fixture frames
+    (`write_detection_fixture`: 2 frames from each of 24 + 8 scenes, their
+    visible objects as ground truth), served from memory in place of
+    `load_image`, as the card's machine has no PIL."""
+    from objectpermanence_tpu_torch.data.detection_dataset import DetectionDataset
+    from objectpermanence_tpu_torch.data.fixtures import write_detection_fixture
+    sets = []
+    for split, scenes, seed in (("train", DET_TRAIN_SCENES, 31), ("dev", DET_DEV_SCENES, 32)):
+        images_dir, csv_path, frames = write_detection_fixture(work / split, scenes, 2, seed=seed)
+        data = DetectionDataset(images_dir, csv_path)
+        data.load_image = frames.__getitem__
+        sets.append(data)
+    return sets
+
+
+def dettrain_detector(device):
+    """The dettrain recipe's detector at full width, from the port's seeded init."""
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    return CaterDetector(DetectorConfig(**DETTRAIN), device=device)
+
+
+def train_batch(data, device):
+    """The first shuffled batch of 8 frames and its ground truth, on the card."""
+    batch = next(data.batches(DET_BATCH, shuffle=True, seed=0))
+    return (torch.from_numpy(batch["images"]).to(device),
+            torch.from_numpy(batch["gt_boxes"]).to(device),
+            torch.from_numpy(batch["gt_labels"]).to(device).long(),
+            torch.from_numpy(batch["gt_valid"]).to(device))
+
+
+def phase_roi_align_grad_vs_plain(det, train_set):
+    """K8 against its plain version at the training shape: the dettrain
+    detector's pyramid of 8 fixture frames, its 300 proposals + the 20
+    ground-truth rows (zero where invalid) per frame, edge rois over frame
+    0's first ones, a seeded normal dOut; and ragged (B=3, N=57). Each level
+    within 1e-4 x max(1, max |ref|); the difference between two K8 calls on
+    the same input (atomics sum in another order each run) is logged."""
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        forward_features, preprocess_images, propose,
+    )
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES, assign_levels
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched_backward, roi_align_batched_backward_reference,
+    )
+    cfg = det.config
+    images, gt_boxes, _, _ = train_batch(train_set, det.device)
+    with torch.no_grad():
+        pyramid = forward_features(det.model, preprocess_images(images, cfg))
+        proposals, _ = propose(det.model, pyramid, cfg, det.anchors)
+    rois = torch.cat([proposals, gt_boxes * cfg.scale], dim=1)
+    edge = torch.tensor([[10.2, 20.7, 10.6, 21.1], [-30.0, 200.0, 25.0, 260.0],
+                         [300.0, -50.0, 420.0, 10.0], [-5.0, -5.0, 595.0, 600.0],
+                         [0.0, 0.0, 0.0, 0.0], [319.5, 255.5, 320.0, 256.0]], device=rois.device)
+    rois[0, :len(edge)] = edge
+    levels = assign_levels(rois)
+    shapes = [tuple(p.shape[-2:]) for p in pyramid[:4]]
+    channels = pyramid[0].shape[1]
+    gen = torch.Generator().manual_seed(8)
+    dout = torch.randn((DET_BATCH, DET_ROIS, channels, 7, 7), generator=gen).to(rois.device)
+    worst = 0.0
+    for batch, n in ((DET_BATCH, DET_ROIS), (3, 57)):
+        args = (dout[:batch, :n].contiguous(), rois[:batch, :n].contiguous(),
+                levels[:batch, :n].contiguous(), shapes, ROI_STRIDES)
+        got = roi_align_batched_backward(*args)
+        again = roi_align_batched_backward(*args)
+        torch.cuda.synchronize()
+        want = roi_align_batched_backward_reference(*args)
+        errs, limits, reruns = [], [], []
+        for g, a, w in zip(got, again, want):
+            assert torch.isfinite(g).all(), "non-finite K8 output"
+            err, limit = roi_err(g, w)
+            errs.append(err)
+            limits.append(limit)
+            reruns.append((g - a).abs().max().item())
+        log("roi_align_grad_vs_plain", kernel="K8", batch=batch, rois=n, channels=channels,
+            max_abs_err_per_level=errs, limit_per_level=limits,
+            max_abs_ref_per_level=[w.abs().max().item() for w in want],
+            run_to_run_max_abs_diff_per_level=reruns,
+            levels_used=sorted(set(args[2].flatten().tolist())))
+        assert all(e <= lim for e, lim in zip(errs, limits)), f"K8 disagrees at B={batch}, N={n}"
+        worst = max(worst, max(errs))
+    return worst, (dout, rois, levels, shapes, [p.detach() for p in pyramid[:4]])
+
+
+def phase_detector_train_path(train_set, dev_set):
+    """`train_detector` at the dettrain recipe's full width: 2 epochs with
+    evaluation, then `resume=True` to epoch 3, each with the launch counts
+    read around it; then `CaterDetector.load(best)` over one 30-frame chunk."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    from objectpermanence_tpu_torch.train.detector_loop import train_detector
+    from objectpermanence_tpu_torch.utils.checkpoint import load_params
+    work = WORK_DIR / "detector_train_path"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = DetectorConfig(**DETTRAIN)
+    common = dict(batch_size=DET_BATCH, learning_rate=DET_LR, checkpoint_dir=str(work),
+                  print_step=2, seed=0, device="cuda")
+    steps = -(-len(train_set) // DET_BATCH)
+    eval_chunks = -(-len(dev_set) // 8)  # evaluate_detector's batches of 8
+    others = ("K1", "K2", "K3", "K4", "K5", "K6")
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    first = train_detector(train_set, dev_set, cfg, num_epochs=DET_EPOCHS, **common)
+    torch.cuda.synchronize()
+    first_seconds = time.perf_counter() - t0
+    first_launches = read()
+    assert [h["epoch"] for h in first["history"]] == list(range(1, DET_EPOCHS + 1))
+    assert first_launches["K8"] == DET_EPOCHS * steps, f"K8 launches {first_launches}"
+    assert first_launches["K7"] == DET_EPOCHS * (steps + eval_chunks), first_launches
+    assert all(first_launches[k] == 0 for k in others), first_launches
+    first_final = load_params(work / "final.npz")
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    resumed = train_detector(train_set, dev_set, cfg, num_epochs=DET_EPOCHS + 1, resume=True,
+                             **common)
+    torch.cuda.synchronize()
+    resume_seconds = time.perf_counter() - t0
+    resume_launches = read()
+    assert [h["epoch"] for h in resumed["history"]] == [DET_EPOCHS + 1], "resume ran other epochs"
+    assert sorted(p.name for p in (work / "resume").iterdir()) == [
+        f"epoch_{DET_EPOCHS + 1:04d}"], "older resume states were kept"
+    assert resume_launches["K8"] == steps and resume_launches["K7"] == steps + eval_chunks, \
+        resume_launches
+    assert all(resume_launches[k] == 0 for k in others), resume_launches
+    final = {k: v.detach().cpu() for k, v in resumed["params"].items()}
+    moved = sum(not torch.equal(final[k], first_final[k]) for k in final)
+    assert moved > 0.9 * len(final), f"the resumed run moved {moved} of {len(final)} tensors"
+    history = first["history"] + resumed["history"]
+    losses = [loss for h in history for loss in h["train_losses"]]
+    assert len(losses) == (DET_EPOCHS + 1) * steps and np.all(np.isfinite(losses)), losses
+
+    best = max(work.glob("best_*.npz"), key=lambda p: float(p.stem.split("_", 1)[1]))
+    detector = CaterDetector.load(str(best), cfg, device="cuda")
+    frames = draw_frames(make_scene(DETECTOR_SEED * 1000 + 7, num_frames=CHUNK), seed=7)
+    read = reset_launches()
+    boxes, labels, scores, valid = detector.detect_video(frames, batch_size=CHUNK)
+    torch.cuda.synchronize()
+    detect_launches = read()
+    assert detect_launches["K7"] == 1 and sum(detect_launches.values()) == 1, detect_launches
+    assert boxes.shape == (CHUNK, cfg.detections_per_img, 4) and np.isfinite(boxes[valid]).all()
+    log("detector_train_path", train_frames=len(train_set), dev_frames=len(dev_set),
+        batch=DET_BATCH, epochs=f"{DET_EPOCHS}+1", steps_per_epoch=steps,
+        seconds=f"{first_seconds:.3f}+{resume_seconds:.3f}",
+        launches=json.dumps(first_launches), resume_launches=json.dumps(resume_launches),
+        loss_per_step=json.dumps([round(x, 5) for x in losses]),
+        map_per_epoch=json.dumps([h["mAP"] for h in history]), best=best.name,
+        moved_tensors=f"{moved}/{len(final)}", detect_launches=json.dumps(detect_launches),
+        detections_kept=int(valid.sum()))
+    return {k: first_launches[k] + resume_launches[k] for k in first_launches}
+
+
+def detector_training_setup(device, seed=0):
+    from objectpermanence_tpu_torch.models.detector import anchors as anchor_lib
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        Detector, DetectorConfig, init_detector,
+    )
+    cfg = DetectorConfig(**DETTRAIN)
+    model = init_detector(Detector(cfg), seed).to(device)
+    anchors = [torch.from_numpy(a).to(device) for a in anchor_lib.pyramid_anchors(
+        cfg.feature_shapes(), cfg.strides, cfg.anchor_sizes)]
+    return cfg, model, anchors
+
+
+def phase_detector_train_step_swap(device, train_set):
+    """One full-width train step at B=8 twice from the same weights and
+    draws: through K7/K8, and with the plain RoIAlign forward and backward
+    in their place. Loss parts within 1e-5 relative, every gradient within
+    1e-4 x max(1, max |plain's|)."""
+    from objectpermanence_tpu_torch.models.detector.training import (
+        Draws, detection_loss, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    inputs = train_batch(train_set, device)
+    runs = {}
+    for swap in (False, True):
+        cfg, model, anchors = detector_training_setup(device)
+        named = trainable_tensors(model)
+        draws = Draws.sample(DET_BATCH, sum(a.shape[0] for a in anchors), DET_ROIS, device,
+                             torch.Generator(device=device).manual_seed(5))
+        read = reset_launches()
+        kernels = rk.roi_align_batched, rk.roi_align_batched_backward
+        if swap:  # the autograd Function's forward and backward, plain
+            rk.roi_align_batched = rk.roi_align_batched_reference
+            rk.roi_align_batched_backward = rk.roi_align_batched_backward_reference
+        try:
+            loss, parts = detection_loss(model, *inputs, cfg, anchors, draws)
+            loss.backward()
+        finally:
+            rk.roi_align_batched, rk.roi_align_batched_backward = kernels
+        torch.cuda.synchronize()
+        runs[swap] = ({k: float(v.detach()) for k, v in parts.items()},
+                      {n: t.grad for n, t in named}, read())
+    (parts, grads, launches), (plain_parts, plain_grads, plain_launches) = runs[False], runs[True]
+    assert launches["K7"] == 1 and launches["K8"] == 1, launches
+    assert plain_launches["K7"] == 0 and plain_launches["K8"] == 0, plain_launches
+    loss_rel = {k: abs(parts[k] - plain_parts[k]) / abs(plain_parts[k]) for k in parts}
+    ratios = {n: (grads[n] - g).abs().max().item() / (GRAD_RTOL * max(1.0, g.abs().max().item()))
+              for n, g in plain_grads.items()}
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:4]
+    log("detector_train_step_swap", batch=DET_BATCH, rois=DET_ROIS,
+        loss_parts=json.dumps(parts),
+        loss_rel_diff=json.dumps(loss_rel), grad_tensors=len(ratios),
+        worst_grad_err_over_limit=json.dumps(worst))
+    assert all(v <= LOSS_RTOL for v in loss_rel.values()), f"loss parts differ: {loss_rel}"
+    assert all(r <= 1.0 for r in ratios.values()), f"gradients differ: {worst}"
+
+
+STEP_STAGES = ("backbone_fpn", "rpn_proposals", "roi_align", "heads_losses", "backward",
+               "optimizer")
+
+
+def phase_detector_train_step_profile(device, train_set, k8_copy_ms, steps=5, profile_steps=3):
+    """Where a full-width detector train step at B=8 spends its time: each
+    stage by CUDA events recorded as the step issues it (the RPN's NMS
+    rounds and the sampler wait on the host), the whole step, then a
+    torch.profiler window with the device's busy share and K8's device time.
+    The backward's split: K8 from the profiler, its NHWC-to-NCHW copy from
+    the times phase (`k8_copy_ms`), the rest of the backward."""
+    from objectpermanence_tpu_torch.models.detector.training import (
+        make_detector_train_step, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.train.detector_loop import warmup_schedule
+    cfg, model, anchors = detector_training_setup(device)
+    optimizer = torch.optim.SGD([t for _, t in trainable_tensors(model)], lr=DET_LR,
+                                momentum=0.9, weight_decay=5e-4, dampening=0.0)
+    step = make_detector_train_step(cfg, anchors, optimizer, warmup_schedule(DET_LR, 5))
+    inputs = train_batch(train_set, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def staged():
+        start = torch.cuda.Event(enable_timing=True)
+        marks = []
+
+        def mark(name):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append((name, event))
+
+        start.record()
+        step(model, *inputs, generator=gen, on_stage=mark)
+        torch.cuda.synchronize()
+        times, prev = {}, start
+        for name, event in marks:
+            times[name] = prev.elapsed_time(event)
+            prev = event
+        return times
+
+    for _ in range(2):
+        staged()
+    runs = [staged() for _ in range(steps)]
+    stage_ms = {name: float(np.mean([r[name] for r in runs])) for name in STEP_STAGES}
+    step_ms = time_ms(lambda: step(model, *inputs, generator=gen), iters=steps, warmup=1)
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profile_steps):
+            step(model, *inputs, generator=gen)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernel_ms(prof)
+    busy_ms = sum(kernels.values())
+    assert busy_ms > 0, "the profiler saw no device time"
+    k8_ms = sum(ms for name, ms in kernels.items() if "roi_align_backward_kernel" in name)
+    k8_ms /= profile_steps
+    assert k8_ms > 0, "the profiler saw no K8 in the train step"
+    per_step = {name[:60]: ms / profile_steps
+                for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
+    log("detector_train_step_profile", batch=DET_BATCH, step_ms=step_ms,
+        stage_ms=json.dumps(stage_ms), stages_sum_ms=sum(stage_ms.values()),
+        backward_split_ms=json.dumps({"k8": k8_ms, "k8_nchw_copy": k8_copy_ms,
+                                      "rest": stage_ms["backward"] - k8_ms - k8_copy_ms}),
+        frames_per_s=DET_BATCH / (step_ms / 1e3), window_ms=window_ms,
+        device_busy_share=busy_ms / window_ms, k8_device_ms=k8_ms,
+        k8_share_of_device_time=k8_ms * profile_steps / busy_ms,
+        per_step_ms=json.dumps(per_step))
+
+
+def phase_k8_times(inputs, launches, max_abs_err):
+    """K8 at the training shape (B=8, N=320, the dettrain pyramid) beside
+    its bound and its plain version, in turns: plain, kernel, kernel, plain.
+    `ms` is the wrapper's time with its copy of dF back to NCHW (the
+    levels' layout); that copy alone is logged as `nchw_copy_ms`. K7 at the
+    same shape is logged beside it. No PyTorch call
+    computes RoIAlign's backward (torchvision is not installed), so
+    library_ms is null."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    sys.path.insert(0, str(REPO / "scripts"))
+    import kernel_bounds as kb
+    dout, rois, levels, shapes, feats = inputs
+    args = (dout, rois, levels, shapes, ROI_STRIDES)
+    plain_a = time_ms(lambda: rk.roi_align_batched_backward_reference(*args), iters=2, warmup=1)
+    kernel_a = time_ms(lambda: rk.roi_align_batched_backward(*args), iters=20)
+    kernel_b = time_ms(lambda: rk.roi_align_batched_backward(*args), iters=20)
+    plain_b = time_ms(lambda: rk.roi_align_batched_backward_reference(*args), iters=2, warmup=1)
+    channels = dout.shape[2]
+    nhwc = [torch.zeros((rois.shape[0], h, w, channels), device=rois.device) for h, w in shapes]
+    copy_ms = time_ms(lambda: [g.permute(0, 3, 1, 2).contiguous() for g in nhwc], iters=20)
+    _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=rois.shape[0], channels=channels)
+    t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
+    row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
+           "nchw_copy_ms": copy_ms,
+           "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log("times", kernel="K8", images=rois.shape[0], rois=rois.shape[1], channels=channels,
+        mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row)
+    with torch.inference_mode():
+        k7_ms = time_ms(lambda: rk.roi_align_batched(feats, rois, levels, ROI_STRIDES), iters=20)
+    log("times", kernel="K7", shape="training", images=rois.shape[0], rois=rois.shape[1],
+        ms=k7_ms, bound_ms=row["bound_ms"])
+    return {"name": "roi_align_batched_backward", "route": "cuda",
+            "source": "objectpermanence_tpu_torch/csrc/roi_align.cu",
+            "replaces": "objectpermanence_tpu/ops/pallas_roi_align.py:858",
+            "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None}, row["nchw_copy_ms"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -937,14 +1279,21 @@ def main() -> int:
     lstm_errors = phase_lstm_vs_plain(weights, device)
     detector = detector_setup(device)
     roi_errors, roi_inputs = phase_roi_align_vs_plain(detector)
+    train_set, dev_set = detection_sets(REPO / "build" / "chip_smoke_detection")
+    k8_error, k8_inputs = phase_roi_align_grad_vs_plain(dettrain_detector(device), train_set)
     launches = phase_main_path(weights, device)
     train_launches = phase_train_path(device)
     preprocess_launches = phase_preprocess_path(device)
+    detector_train_launches = phase_detector_train_path(train_set, dev_set)
+    phase_detector_train_step_swap(device, train_set)
     phase_train_step_profile(device)
     phase_detect_profile(detector)
     kernels = [phase_times(weights, device, launches, max_abs_err)]
     kernels += phase_lstm_times(weights, device, train_launches, lstm_errors)
     kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
+    k8_row, k8_copy_ms = phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error)
+    kernels.append(k8_row)
+    phase_detector_train_step_profile(device, train_set, k8_copy_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -209,3 +209,41 @@ def write_fixture_dataset(root, num_videos: int = 8, seed: int = 0,
         (root / fname).write_text("".join(line + "\n" for line in lines))
 
     return pred_dir, labels_dir, root / "containment_annotations.txt"
+
+
+def write_detection_fixture(root, num_scenes: int, frames_per_scene: int = 2, seed: int = 0,
+                            num_frames: int = 20, write_images: bool = False
+                            ) -> Tuple[Path, Path, Dict[str, np.ndarray]]:
+    """A detection set from `make_scene` scenes, a test aid: from each scene
+    `frames_per_scene` evenly spaced frames drawn by `draw_frames`, and a
+    CSV in the reference's schema (`filename,object_class,X,Y,width,height`,
+    the class as its integer id) with one row per visible object.
+
+    Writes `root/detection_annotations.csv` and, with `write_images`, the
+    frames as `root/det_images/<name>.png` (PIL is imported then only).
+    Returns (images_dir, csv_path, {filename: (240, 320, 3) uint8 frame}),
+    so a caller without PIL can serve `DetectionDataset.load_image` from
+    the dict."""
+    root = Path(root)
+    images_dir = root / "det_images"
+    images_dir.mkdir(parents=True, exist_ok=True)
+    rows, frames = [], {}
+    picks = np.linspace(0, num_frames - 1, frames_per_scene + 2)[1:-1].round().astype(int)
+    for s in range(num_scenes):
+        scene = make_scene(seed * 1000 + s, num_frames)
+        drawn = draw_frames(scene, seed=seed * 1000 + s)
+        for t in picks:
+            name = f"scene_{s:05d}_frame_{t:03d}.png"
+            frames[name] = drawn[t]
+            for k in np.flatnonzero(scene["visible"][t]):
+                x1, y1, x2, y2 = scene["boxes"][t, k]
+                rows.append(f"{name},{int(scene['classes'][k])},{x1:.2f},{y1:.2f},"
+                            f"{x2 - x1:.2f},{y2 - y1:.2f}")
+    csv_path = root / "detection_annotations.csv"
+    csv_path.write_text("filename,object_class,X,Y,width,height\n"
+                        + "".join(row + "\n" for row in rows))
+    if write_images:
+        from PIL import Image
+        for name, frame in frames.items():
+            Image.fromarray(frame).save(images_dir / name)
+    return images_dir, csv_path, frames

@@ -79,5 +79,5 @@ def reasoning_inference_main(model_name: str, results_dir: str, inference_config
         write_bb_predictions(name, results_dir, boxes)
     if cfg.videos_dir:
         print("note: debug videos (videos_dir) are not ported yet; "
-              "see ROADMAP.md, Next slices, item 5")
+              "see ROADMAP.md, Next slices, item 4")
     return predictions

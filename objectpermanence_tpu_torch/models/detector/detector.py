@@ -1,13 +1,14 @@
 """Faster R-CNN assembly, the counterpart of
 `objectpermanence_tpu/models/detector/detector.py`: config, modules, the
-inference forward and the video loop.
+inference forward and the video loop (training is `training.py`).
 
 Shapes stay static as in JAX: frames are resized and zero-padded to a
 fixed pyramid, proposals and detections are fixed-width tensors padded with
 `NEG_INF` scores. Where JAX `vmap`s over the frames of a chunk, the port
 runs the chunk as a batch dimension: NMS takes every (image, level) pair in
-one call, RoIAlign every image in one launch (`ops/roi_align_kernel.py`),
-the box head every roi of the chunk in one product.
+one call, RoIAlign every image in one launch (`ops/roi_align_kernel.py`:
+K7, and in training K8 for its backward), the box head every roi of the
+chunk in one product.
 
 The backbone runs NCHW, cuDNN's own fp32 layout; the RoIAlign kernel's
 wrapper copies P2-P5 to NHWC once per chunk. On the H100 that is faster
@@ -34,7 +35,7 @@ from objectpermanence_tpu_torch.models.detector.roi_heads import (
 )
 from objectpermanence_tpu_torch.models.detector.rpn import RPNHead, generate_proposals
 from objectpermanence_tpu_torch.ops.nms import NEG_INF
-from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_batched
+from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_batched, roi_align_trainable
 
 # the reference divides frames by 256 before the detector, then applies the
 # ImageNet mean/std of the torchvision transform
@@ -90,16 +91,21 @@ class DetectorConfig:
         return [(math.ceil(h / s), math.ceil(w / s)) for s in self.strides]
 
 
-def check_supported(config: DetectorConfig) -> None:
+def check_supported(config: DetectorConfig, training: bool = False) -> None:
     """Raise on the options the port does not run yet."""
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r}: the port's detector runs float32 only; "
-            f"the bf16 detector is ROADMAP.md, Next slices, item 2 (the 800 px path)")
+            f"the bf16 detector is ROADMAP.md, Next slices, item 1 (the 800 px path)")
+    if config.roi_backend == "windowed" and training:
+        raise NotImplementedError(
+            "roi_backend='windowed' in training is roi_align_windowed_trainable, whose "
+            "forward is K9 (roi_align_pallas_windowed), not ported yet; see ROADMAP.md, "
+            "Next slices, item 1 (the 800 px path with K9)")
     if config.roi_backend == "windowed":
         raise NotImplementedError(
             "roi_backend='windowed' is K9 (roi_align_pallas_windowed), not ported yet; "
-            "see ROADMAP.md, Next slices, item 2 (the 800 px path with K9)")
+            "see ROADMAP.md, Next slices, item 1 (the 800 px path with K9)")
     if config.roi_backend not in ("auto", "pallas", "gather"):
         raise ValueError(f"roi_backend must be auto, pallas, gather or windowed, "
                          f"got {config.roi_backend!r}")
@@ -206,9 +212,12 @@ def batched_roi_align(pyramid: List[torch.Tensor], proposals: torch.Tensor,
     """P2..P5 (B, C, H_l, W_l) + proposals (B, N, 4) -> (B, N, C, 7, 7):
     each roi pooled from its assigned level, by the RoIAlign kernel on the
     card (K7, `roi_align_pallas_batched` in JAX) and by its plain version on
-    the CPU."""
+    the CPU. When a gradient is recorded for the pyramid, through the
+    autograd Function whose backward is K8; the proposals get none."""
     check_supported(config)
     levels = assign_levels(proposals)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in pyramid):
+        return roi_align_trainable(pyramid, proposals, levels, ROI_STRIDES)
     return roi_align_batched(pyramid, proposals, levels, ROI_STRIDES)
 
 

@@ -39,13 +39,13 @@ NO_LABELS_MODELS = [m for m in TRAINING_SUPPORTED_MODELS if m.endswith("_no_labe
 
 # where each model that is not ported yet is planned (ROADMAP.md, "Next slices")
 _NOT_PORTED = {
-    "baseline_lstm": "Next slices, item 4 (the other reasoning models)",
-    "non_linear_lstm": "Next slices, item 4 (the other reasoning models)",
-    "transformer_lstm": "Next slices, item 4 (the other reasoning models)",
-    "opnet_lstm_mlp": "Next slices, item 4 (the other reasoning models)",
-    "opnet_moe": "Next slices, item 4 (the other reasoning models)",
-    "detector_tracker": "Next slices, item 7 (trackers and the heuristic)",
-    "detector_heuristic": "Next slices, item 7 (trackers and the heuristic)",
+    "baseline_lstm": "Next slices, item 3 (the other reasoning models)",
+    "non_linear_lstm": "Next slices, item 3 (the other reasoning models)",
+    "transformer_lstm": "Next slices, item 3 (the other reasoning models)",
+    "opnet_lstm_mlp": "Next slices, item 3 (the other reasoning models)",
+    "opnet_moe": "Next slices, item 3 (the other reasoning models)",
+    "detector_tracker": "Next slices, item 6 (trackers and the heuristic)",
+    "detector_heuristic": "Next slices, item 6 (trackers and the heuristic)",
 }
 
 

@@ -6,8 +6,13 @@ port saves a flat `state_dict` (`"att_lstm.w_ih"`, ...; for the detector,
 torchvision's names, `"backbone.body.conv1.weight"`, ...) with
 `np.savez_compressed`. A JAX checkpoint crosses over once, through
 `scripts/export_torch_weights.py`. A resumable training state is a
-directory with `state.npz` (the params and Adam's `exp_avg`, `exp_avg_sq`
-and `step` of each, keyed `<part>/<param name>`) and `metadata.json`.
+directory with `state.npz` and `metadata.json`: `state.npz` holds the
+model's whole state_dict (`params/<name>`: parameters, and buffers such as
+the detector's frozen batch-norm tensors) and the optimizer's state of each
+tensor it updates, keyed `<part>/<name>`: Adam's `exp_avg`, `exp_avg_sq`
+and `step`, SGD's `momentum_buffer`. Files are written uncompressed: a
+detector's random-looking floats do not compress, and zlib is slow on its
+hundreds of MB.
 """
 
 import json
@@ -29,7 +34,7 @@ def save_params(path, state_dict: Dict[str, torch.Tensor]) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     arrays = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     with open(path, "wb") as f:  # a file object keeps numpy from appending .npz
-        np.savez_compressed(f, **arrays)
+        np.savez(f, **arrays)
     return path
 
 
@@ -73,41 +78,57 @@ def best_params_checkpoint(checkpoint_dir) -> Optional[Path]:
     return max(candidates)[2]
 
 
+_OPTIMIZER_STATE = ("exp_avg", "exp_avg_sq", "momentum_buffer")
+
+
+def _optimized_names(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
+    """The state_dict name of each tensor the optimizer updates, in its
+    order (the index its state_dict keys them by)."""
+    names = {id(t): n for n, t in model.state_dict(keep_vars=True).items()}
+    return [names[id(t)] for group in optimizer.param_groups for t in group["params"]]
+
+
 def save_train_state(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                      metadata: dict) -> Path:
-    """Full resumable state: params + Adam's moments and step + host
-    metadata. Overwrites (a re-run after resume revisits epoch numbers)."""
+    """Full resumable state: the model's state_dict, the optimizer's state
+    of each tensor it updates (Adam's moments and step, or SGD's momentum
+    buffer), and host `metadata`. Overwrites (a re-run after resume
+    revisits epoch numbers)."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     state = optimizer.state_dict()["state"]
-    arrays = {}
-    for index, (name, param) in enumerate(model.named_parameters()):
-        arrays[f"params/{name}"] = param.detach().cpu().numpy()
-        moments = state.get(index)
-        if moments is not None:
-            for key in ("exp_avg", "exp_avg_sq"):
-                arrays[f"{key}/{name}"] = moments[key].detach().cpu().numpy()
-            arrays[f"step/{name}"] = np.asarray(float(moments["step"]), np.float32)
+    arrays = {f"params/{name}": t.detach().cpu().numpy()
+              for name, t in model.state_dict().items()}
+    for index, name in enumerate(_optimized_names(model, optimizer)):
+        entry = state.get(index, {})
+        for key in _OPTIMIZER_STATE:
+            if entry.get(key) is not None:
+                arrays[f"{key}/{name}"] = entry[key].detach().cpu().numpy()
+        if "step" in entry:
+            arrays[f"step/{name}"] = np.asarray(float(entry["step"]), np.float32)
     with open(path / "state.npz", "wb") as f:
-        np.savez_compressed(f, **arrays)
+        np.savez(f, **arrays)
     (path / "metadata.json").write_text(json.dumps(metadata, default=float))
     return path
 
 
 def restore_train_state(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
     """Load a state written by `save_train_state` into `model` and
-    `optimizer` (built over `model.parameters()`); returns the metadata."""
+    `optimizer` (built over the same tensors of `model` as the one saved);
+    returns the metadata."""
     path = Path(path)
     with np.load(path / "state.npz", allow_pickle=False) as blob:
         arrays = {key: blob[key] for key in blob.files}
-    names = [name for name, _ in model.named_parameters()]
-    model.load_state_dict({n: torch.from_numpy(arrays[f"params/{n}"]) for n in names})
+    model.load_state_dict({key[len("params/"):]: torch.from_numpy(value)
+                           for key, value in arrays.items() if key.startswith("params/")})
     state = {}
-    for index, name in enumerate(names):
+    for index, name in enumerate(_optimized_names(model, optimizer)):
+        entry = {key: torch.from_numpy(arrays[f"{key}/{name}"]) for key in _OPTIMIZER_STATE
+                 if f"{key}/{name}" in arrays}
         if f"step/{name}" in arrays:
-            state[index] = {"step": torch.tensor(float(arrays[f"step/{name}"])),
-                            "exp_avg": torch.from_numpy(arrays[f"exp_avg/{name}"]),
-                            "exp_avg_sq": torch.from_numpy(arrays[f"exp_avg_sq/{name}"])}
+            entry["step"] = torch.tensor(float(arrays[f"step/{name}"]))
+        if entry:
+            state[index] = entry
     optimizer.load_state_dict({"state": state,
                                "param_groups": optimizer.state_dict()["param_groups"]})
     return json.loads((path / "metadata.json").read_text())

@@ -75,8 +75,10 @@ KERNELS = [
     ("K6", "pallas_roi_align.py:468 _pallas_roi_align_tiled", roi_align(NATIVE, 300)),
     ("K7", "pallas_roi_align.py:679 _pallas_roi_align_tiled_batched",
      roi_align(NATIVE, 300, images=30)),
+    # K8 runs in the detector's train step only: batches of 8 (the dettrain
+    # recipe, scripts/two_stage_run.py), 300 proposals + 20 ground-truth boxes
     ("K8", "pallas_roi_align.py:858 _pallas_roi_align_tiled_batched_bwd",
-     roi_align(NATIVE, 300, images=30)),  # the backward moves the same bytes
+     roi_align(NATIVE, 320, images=8)),
     ("K9", "pallas_roi_align.py:1052 _pallas_roi_align_windowed", roi_align(P800, 1000)),
 ]
 

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither jax nor the JAX package, and its
 entry points run on the card unless asked for the CPU.
 
-Each check runs in a fresh interpreter where `import jax` (and orbax, and
-cv2, which only `read_video_frames` imports, at its first call) is made to
-fail, so such an import anywhere in the port would break it.
+Each check runs in a fresh interpreter where `import jax` (and orbax, cv2,
+which only `read_video_frames` imports, at its first call, and PIL, which
+only `DetectionDataset.load_image` imports) is made to fail, so such an
+import anywhere in the port would break it.
 """
 
 import os
@@ -19,15 +20,18 @@ import sys
 sys.modules["jax"] = None
 sys.modules["orbax"] = None
 sys.modules["cv2"] = None
+sys.modules["PIL"] = None
 sys.path.insert(0, {repo!r})
 """
 
 
 def _run(body: str, tmp_path) -> str:
+    """`body` in a fresh interpreter, on one CPU thread: with more, torch's
+    thread pool stalls when the lane's workers share the cores."""
     code = _PRELUDE.format(repo=str(REPO)) + textwrap.dedent(body)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=tmp_path, timeout=300,
-                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return proc.stdout
 
@@ -97,6 +101,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
         from objectpermanence_tpu_torch.train.loop import training_main
         from objectpermanence_tpu_torch.infer.preprocess import preprocess_main
         from objectpermanence_tpu_torch.models.detector import CaterDetector
+        from objectpermanence_tpu_torch.models.detector.detector import DetectorConfig
+        from objectpermanence_tpu_torch.train.detector_loop import train_detector
+        from objectpermanence_tpu_torch.data.detection_dataset import DetectionDataset
+        from objectpermanence_tpu_torch.data.fixtures import write_detection_fixture
+        det_data = DetectionDataset(*write_detection_fixture("det", 1, 1)[:2])
         with open("preprocess.json", "w") as f:  # the shipped config: the card
             json.dump(json.load(open({shipped!r})), f)
         training = {k: "x" for k in ("train_sample_dir", "train_labels_dir",
@@ -119,7 +128,9 @@ def test_entry_points_raise_without_a_card(tmp_path):
                  lambda: CaterDetector(),
                  lambda: preprocess_main("out", {"videos_dir": "v"}),
                  lambda: cli_main(["preprocess", "--results_dir", "out", "--config",
-                                   "preprocess.json"])]
+                                   "preprocess.json"]),
+                 lambda: train_detector(det_data, None, DetectorConfig()),
+                 lambda: train_detector(det_data, None, DetectorConfig(), device="cuda")]
         for call in calls:
             try:
                 call()
@@ -155,6 +166,37 @@ def test_preprocess_cpu_path_runs_without_jax_or_cv2(tmp_path):
         assert set(data) == {"bb", "labels"} and len(data["bb"]) == 300
         assert all(b.dtype == np.float32 and b.shape[1:] == (4,) for b in data["bb"])
         assert sys.modules["cv2"] is None and sys.modules["jax"] is None
+        leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
+        assert not leaked, leaked
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")
+
+
+def test_detector_training_cpu_path_runs_without_jax_or_pil(tmp_path):
+    out = _run("""
+        from pathlib import Path
+        import numpy as np
+        from objectpermanence_tpu_torch.data.detection_dataset import DetectionDataset
+        from objectpermanence_tpu_torch.data.fixtures import write_detection_fixture
+        from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+        from objectpermanence_tpu_torch.train.detector_loop import evaluate_detector, train_detector
+        images_dir, csv_path, frames = write_detection_fixture("det", 3, 2, seed=1)
+        data = DetectionDataset(images_dir, csv_path)
+        data.load_image = frames.__getitem__   # no PIL: the drawn frames themselves
+        config = DetectorConfig(min_size=240, max_size=320, backbone_layers=(1, 1, 1, 1),
+                                backbone_width=8, fpn_channels=16, rpn_pre_nms_top_n=50,
+                                rpn_post_nms_top_n=20, detections_per_img=5,
+                                backbone_norm="group")
+        result = train_detector(data, data, config, num_epochs=1, batch_size=4,
+                                checkpoint_dir="ckpt", device="cpu")
+        assert [h["epoch"] for h in result["history"]] == [1]
+        assert np.isfinite(result["history"][0]["train_loss"])
+        assert Path("ckpt/final.npz").exists() and Path("ckpt/resume/epoch_0001").is_dir()
+        metrics = evaluate_detector(CaterDetector.load("ckpt/final.npz", config, device="cpu"),
+                                    data)
+        assert set(metrics) == {"mAP", "AP50", "AP75"}
+        assert sys.modules["PIL"] is None and sys.modules["jax"] is None
         leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
         assert not leaked, leaked
         print("ok")

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 fused OPNet forward (K1), the LSTM recurrence forward, backward and
-forward-only kernels (K2, K3, K4), and multilevel RoIAlign (K7, and K5/K6,
-its one-image entry points).
+forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
+one-image entry points) and its backward (K8).
 
 Marked `gpu`; without a CUDA card each test skips (decided inside the
 test). On a machine with an H100 and the CUDA toolkit:
@@ -18,6 +18,8 @@ boxes at most 1 px apart on at most 0.1% of the coordinates. The LSTM
 kernels hold `hs`, `cs` and `dxproj` at atol 1e-4 and `dW_hh` at 1e-4 x
 max(1, max |reference|), since it sums B x T terms. RoIAlign holds its
 output at 1e-4 x max(1, max |reference|): the pyramid's values reach 1e3.
+K8 holds each level's gradient at 1e-4 x max(1, max |reference|): it sums
+many rois' shares with atomics, in an order that changes from run to run.
 """
 
 from pathlib import Path
@@ -236,3 +238,105 @@ def test_detector_on_cuda_goes_through_k7():
     boxes, labels, scores, valid = detector.detect_video(frames, batch_size=30)
     assert roi_align_batched.launches == before + 1
     assert boxes.shape == (30, 100, 4) and np.isfinite(boxes[valid]).all()
+
+
+def _backward_case(batch, n, device, seed):
+    feats, rois, levels = _pyramid(batch, n, device, seed=seed)
+    grad = torch.from_numpy(np.random.RandomState(seed + 1).standard_normal(
+        (batch, n, 256, 7, 7)).astype(np.float32)).to(device)
+    return feats, rois, levels, grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n", [(8, 320), (3, 57), (1, 1)])
+def test_roi_align_backward_matches_plain(batch, n):
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched_backward, roi_align_batched_backward_reference,
+    )
+    device = _card()
+    feats, rois, levels, grad = _backward_case(batch, n, device, seed=n + 2)
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    before = roi_align_batched_backward.launches
+    got = roi_align_batched_backward(grad, rois, levels, shapes, ROI_STRIDES)
+    again = roi_align_batched_backward(grad, rois, levels, shapes, ROI_STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_batched_backward.launches == before + 2
+    want = roi_align_batched_backward_reference(grad, rois, levels, shapes, ROI_STRIDES)
+    for g, a, w, f in zip(got, again, want, feats):
+        assert g.shape == f.shape and g.is_contiguous() and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= _roi_limit(w)
+        assert (a - w).abs().max().item() <= _roi_limit(w)
+
+
+@pytest.mark.gpu
+def test_roi_align_trainable_launches_k7_forward_and_k8_backward():
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_batched_backward, roi_align_batched_reference,
+        roi_align_trainable,
+    )
+    device = _card()
+    feats, rois, levels, grad = _backward_case(2, 40, device, seed=5)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    plain = [f.clone().requires_grad_(True) for f in feats]
+    before = (roi_align_batched.launches, roi_align_batched_backward.launches)
+    out = roi_align_trainable(leaves, rois, levels, ROI_STRIDES)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert (roi_align_batched.launches, roi_align_batched_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = roi_align_batched_reference(plain, rois, levels, ROI_STRIDES)
+    want.backward(grad)
+    assert (out - want).abs().max().item() <= _roi_limit(want)
+    for got, ref in zip(leaves, plain):
+        assert (got.grad - ref.grad).abs().max().item() <= _roi_limit(ref.grad)
+
+
+@pytest.mark.gpu
+def test_detector_train_step_on_cuda_launches_k7_and_k8_once(monkeypatch):
+    """One full-width step of the dettrain config (GroupNorm, B=2): K7 in the
+    forward and K8 in the backward, once each, and never a plain RoIAlign."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector import anchors as anchor_lib
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        Detector, DetectorConfig, init_detector,
+    )
+    from objectpermanence_tpu_torch.models.detector.training import (
+        make_detector_train_step, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.train.detector_loop import warmup_schedule
+    device = _card()
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain RoIAlign ran on the card")
+
+    monkeypatch.setattr(rk, "roi_align_batched_reference", plain)
+    monkeypatch.setattr(rk, "roi_align_batched_backward_reference", plain)
+    config = DetectorConfig(min_size=240, max_size=320, backbone_norm="group",
+                            rpn_pre_nms_top_n=500, rpn_post_nms_top_n=300)
+    model = init_detector(Detector(config)).to(device)
+    tensors = [t for _, t in trainable_tensors(model)]
+    optimizer = torch.optim.SGD(tensors, lr=5e-3, momentum=0.9, weight_decay=5e-4)
+    anchors = [torch.from_numpy(a).to(device) for a in anchor_lib.pyramid_anchors(
+        config.feature_shapes(), config.strides, config.anchor_sizes)]
+    step = make_detector_train_step(config, anchors, optimizer, warmup_schedule(5e-3, 10))
+    scenes = [make_scene(s, num_frames=20) for s in (0, 1)]
+    images = torch.from_numpy(np.stack([draw_frames(s, i)[8] for i, s in enumerate(scenes)]))
+    boxes = torch.zeros((2, 20, 4))
+    labels = torch.zeros((2, 20), dtype=torch.int64)
+    valid = torch.zeros((2, 20), dtype=torch.bool)
+    for i, scene in enumerate(scenes):
+        vis = np.flatnonzero(scene["visible"][8])
+        boxes[i, :len(vis)] = torch.from_numpy(scene["boxes"][8, vis])
+        labels[i, :len(vis)] = torch.from_numpy(scene["classes"][vis])
+        valid[i, :len(vis)] = True
+    before = (rk.roi_align_batched.launches, rk.roi_align_batched_backward.launches)
+    parts = step(model, images.float().to(device), boxes.to(device), labels.to(device),
+                 valid.to(device), generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    assert (rk.roi_align_batched.launches, rk.roi_align_batched_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(v) for v in parts.values())
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in tensors)

@@ -8,6 +8,13 @@ interpret mode, as `tests/test_pallas_roi_align.py` runs them. The K5/K6/K7
 entry points of the port (`ops/roi_align_kernel.py`) take CPU tensors to
 the plain version, so they must equal it exactly.
 
+The features' gradient: autograd through the plain batched RoIAlign, the
+autograd Function (`roi_align_trainable`: on the CPU the plain forward and
+the plain K8, `roi_align_batched_backward_reference`) and the explicit
+plain backward, against `jax.grad` of the vmapped gather and of
+interpret-mode `roi_align_pallas_batched` (whose custom VJP is K8), at the
+same tolerance.
+
 Tolerance rtol 1e-5 / atol 1e-6, the JAX tests' own: both sides sum the
 same float32 taps in another order. That holds because the port places the
 samples where XLA does (XLA rounds `y1 + g * roi_h / pooled` as a product
@@ -185,3 +192,100 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
         args["strides"] = ROI_STRIDES[:3]
     with pytest.raises((TypeError, ValueError)):
         kernel.roi_align_batched(**args)
+
+
+def _grad_case(seed, batch=2, n=12):
+    rng = np.random.RandomState(seed)
+    feats = _features(rng, batch)
+    rois = np.stack([_rois(rng, n) for _ in range(batch)])
+    levels = np.array(jax.vmap(jax_assign_levels)(jnp.asarray(rois)))
+    cot = rng.standard_normal((batch, n, 8, 7, 7)).astype(np.float32)
+    return feats, rois, levels, cot
+
+
+def _jax_feature_grads(feats, rois, levels, cot, pallas: bool):
+    rois, levels, cot = jnp.asarray(rois), jnp.asarray(levels), jnp.asarray(cot)
+
+    def loss(fs):
+        if pallas:
+            out = pra.roi_align_pallas_batched(fs, rois, levels, ROI_STRIDES, channel_chunk=4)
+        else:
+            out = jax.vmap(lambda *a: jax_roi.multilevel_roi_align(list(a[:4]), a[4], a[5],
+                                                                   ROI_STRIDES))(*fs, rois, levels)
+        return jnp.sum(out * cot)
+
+    fs = [jnp.asarray(f) for f in feats]
+    if not pallas:
+        return [np.asarray(g) for g in jax.grad(loss)(fs)]
+    orig = pra.pl.pallas_call
+    pra.pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        return [np.asarray(g) for g in jax.grad(loss)(fs)]
+    finally:
+        pra.pl.pallas_call = orig
+
+
+def _port_feature_grads(fn, feats, rois, levels, cot):
+    leaves = [torch.from_numpy(f).requires_grad_(True) for f in feats]
+    fn(leaves, torch.from_numpy(rois), torch.from_numpy(levels), ROI_STRIDES).backward(
+        torch.from_numpy(cot))
+    return [leaf.grad.numpy() for leaf in leaves]
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+@pytest.mark.parametrize("port", ["plain_autograd", "function"])
+@pytest.mark.parametrize("reference", ["gather", "interpret_pallas"])
+def test_feature_gradients_match_jax(reference, port, seed):
+    feats, rois, levels, cot = _grad_case(seed)
+    want = _jax_feature_grads(feats, rois, levels, cot, pallas=reference == "interpret_pallas")
+    fn = kernel.roi_align_batched_reference if port == "plain_autograd" else \
+        kernel.roi_align_trainable
+    before = (kernel.roi_align_batched.launches, kernel.roi_align_batched_backward.launches)
+    got = _port_feature_grads(fn, feats, rois, levels, cot)
+    assert (kernel.roi_align_batched.launches,
+            kernel.roi_align_batched_backward.launches) == before  # no launch on the CPU
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, **TOL)
+    assert max(np.abs(w).max() for w in want) > 0.1
+
+
+def test_plain_backward_equals_autograd_and_the_function():
+    feats, rois, levels, cot = _grad_case(5, batch=3, n=17)
+    autograd = _port_feature_grads(kernel.roi_align_batched_reference, feats, rois, levels, cot)
+    function = _port_feature_grads(kernel.roi_align_trainable, feats, rois, levels, cot)
+    explicit = kernel.roi_align_batched_backward(
+        torch.from_numpy(cot), torch.from_numpy(rois), torch.from_numpy(levels),
+        [f.shape[-2:] for f in feats], ROI_STRIDES)
+    for a, f, e in zip(autograd, function, explicit):
+        assert e.shape == a.shape and e.is_contiguous()
+        np.testing.assert_allclose(e.numpy(), a, **TOL)
+        np.testing.assert_array_equal(f, e.numpy())
+
+
+def test_backward_of_an_empty_batch_is_zero():
+    feats = [torch.zeros((2, 8, h, w)) for h, w in SHAPES]
+    rois = torch.zeros((2, 0, 4))
+    levels = torch.zeros((2, 0), dtype=torch.int32)
+    before = kernel.roi_align_batched_backward.launches
+    grads = kernel.roi_align_batched_backward(torch.zeros((2, 0, 8, 7, 7)), rois, levels, SHAPES,
+                                              ROI_STRIDES)
+    assert kernel.roi_align_batched_backward.launches == before
+    assert [tuple(g.shape) for g in grads] == [tuple(f.shape) for f in feats]
+    assert all(not g.any() for g in grads)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "batch", "shapes"])
+def test_backward_rejects_what_the_kernel_does_not_take(bad):
+    cot = torch.zeros((2, 5, 8, 7, 7))
+    rois = torch.zeros((2, 5, 4))
+    levels = torch.zeros((2, 5), dtype=torch.int32)
+    shapes = SHAPES
+    if bad == "dtype":
+        cot = cot.double()
+    elif bad == "batch":
+        cot = cot[:1]
+    else:
+        shapes = SHAPES[:3]
+    with pytest.raises((TypeError, ValueError)):
+        kernel.roi_align_batched_backward(cot, rois, levels, shapes, ROI_STRIDES)
