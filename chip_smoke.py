@@ -4,19 +4,22 @@
 
 Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1;
 `lstm_scan`: K2, K3, K4; `roi_align`: K7, with K5/K6 as its one-image
-entries, and K8, its backward), holds each against its plain PyTorch
-version at the main paths' full-width shapes, drives the four main paths
-(OPNet inference over ingested detections; OPNet training on a fixture
-dataset followed by inference from its best checkpoint; `preprocess`, the
-full-width Faster R-CNN over fixture videos, followed by OPNet inference
-over the pickles it wrote, all three through the port's CLI; Faster R-CNN
-training through `train_detector` at the dettrain recipe's full width,
-resumed, then detection from its best checkpoint), reading each kernel's
-launch count around each path, runs one detector train step again with the
+entries, K8, its backward, and K9, the windowed RoIAlign; K7 and K9 in
+float32 and bfloat16), holds each against its plain PyTorch version at the
+main paths' full-width shapes, drives the five main paths (OPNet inference
+over ingested detections; OPNet training on a fixture dataset followed by
+inference from its best checkpoint; `preprocess`, the full-width Faster
+R-CNN over fixture videos, followed by OPNet inference over the pickles it
+wrote, all three through the port's CLI; Faster R-CNN training through
+`train_detector` at the dettrain recipe's full width, resumed, then
+detection from its best checkpoint; `preprocess` at the 800 px bf16 recipe,
+then chunks of its fp32 twin, of the default `DetectorConfig()` and of the
+native geometry in bf16), reading each kernel's launch count around each
+path, runs one detector train step and one 800 px video again with the
 plain RoIAlign swapped in, profiles one full-width train step of OPNet and
-of the detector and one detector chunk, times every kernel beside its
-bound, its plain version and a library yardstick where there is one, and
-prints as its last line
+of the detector and detector chunks at both geometries, times every kernel
+beside its bound, its plain version and a library yardstick where there is
+one, and prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure exits non-zero before that line. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -68,6 +71,24 @@ DET_ROIS = 320       # 300 proposals + 20 ground-truth boxes per image
 LOSS_RTOL = 1e-5     # swap step: loss parts, relative
 BOX_PX = 0.25        # detections kernel vs plain RoIAlign: boxes within 0.25 px
 FRAME_FLIP_SHARE = 1e-3  # ... on all but at most 0.1% of frames
+# the 800 px recipe as served (scripts/detector_infer800.py bf16_windowed): GroupNorm
+# ResNet-50 FPN 256, min 800 / max 1333 (240 x 320 frames -> 800 x 1067, padded to
+# 800 x 1088), RPN 500/300, the windowed RoIAlign, bf16 compute, batch 8; its fp32
+# twin is fp32_windowed. Not cut in width or depth; seeded weights, fixture frames.
+DET800 = dict(backbone_norm="group", rpn_pre_nms_top_n=500, rpn_post_nms_top_n=300,
+              roi_backend="windowed")
+DET800_BATCH = 8
+DET800_SEED = 41     # fixture scene of the 800 px video
+# rois over 800 x 1088 frames: sub-pixel, across and beyond the edges, 2000 px, a
+# zero box, the far corner; then five of 600 x 8 px (and 8 x 600), at P2 far over
+# the 56-64 px window, so out of the windowed kernel's contract
+EDGE_ROIS_800 = [[10.2, 20.7, 10.6, 21.1], [-75.0, 500.0, 60.0, 650.0],
+                 [750.0, -125.0, 1050.0, 25.0], [-12.0, -12.0, 1990.0, 1999.0],
+                 [0.0, 0.0, 0.0, 0.0], [1087.5, 799.5, 1088.0, 800.0],
+                 [100.0, 200.0, 700.0, 208.0], [300.0, 500.5, 900.0, 508.5],
+                 [50.0, 100.0, 58.0, 700.0], [1000.0, 10.0, 1008.0, 610.0],
+                 [480.0, 790.0, 1080.0, 798.0]]
+OUT_OF_CONTRACT_MIN = 4
 
 
 def log(phase, **fields):
@@ -143,10 +164,12 @@ def reset_launches():
     from objectpermanence_tpu_torch.ops.opnet_fused import opnet_fused_forward
     from objectpermanence_tpu_torch.ops.roi_align_kernel import (
         roi_align_batched, roi_align_batched_backward, roi_align_single, roi_align_tiled,
+        roi_align_windowed,
     )
     wrappers = {"K1": opnet_fused_forward, "K2": lstm_scan_forward, "K3": lstm_scan_backward,
                 "K4": lstm_scan_hs, "K5": roi_align_single, "K6": roi_align_tiled,
-                "K7": roi_align_batched, "K8": roi_align_batched_backward}
+                "K7": roi_align_batched, "K8": roi_align_batched_backward,
+                "K9": roi_align_windowed}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {tag: fn.launches for tag, fn in wrappers.items()}
@@ -224,7 +247,7 @@ def phase_main_path(weights, device):
     launches = counts["K1"]
     assert rc == 0, f"CLI exit {rc}"
     assert launches > 0, "the main path did not launch the fused kernel"
-    assert all(counts[k] == 0 for k in ("K2", "K3", "K4", "K5", "K6", "K7", "K8")), \
+    assert all(counts[k] == 0 for k in ("K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")), \
         f"inference ran other kernels: {counts}"
 
     files = sorted(results.glob("*_bb.json"))
@@ -618,19 +641,24 @@ def detector_setup(device):
     return CaterDetector(DetectorConfig(**overrides), device=device)
 
 
-def fixture_video(path):
+def fixture_video(path, seed=DETECTOR_SEED):
     """Stands in for `read_video_frames` (the card's machine has no cv2):
     the 300 frames of fixture video `CATER_fixture_<v>`, its `make_scene`
     scene drawn by `draw_frames`."""
     from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
     v = int(Path(path).stem.rsplit("_", 1)[1])
-    return draw_frames(make_scene(DETECTOR_SEED * 1000 + v), seed=v)
+    return draw_frames(make_scene(seed * 1000 + v), seed=v)
 
 
-def detector_rois(detector, frames):
-    """P2..P5 and the proposals the detector makes of `frames`, with a few
-    edge cases written over image 0's first rois: sub-pixel, across and
-    beyond the image edge, 600 px, and an all-zero padding box."""
+EDGE_ROIS = [[10.2, 20.7, 10.6, 21.1], [-30.0, 200.0, 25.0, 260.0], [300.0, -50.0, 420.0, 10.0],
+             [-5.0, -5.0, 595.0, 600.0], [0.0, 0.0, 0.0, 0.0], [319.5, 255.5, 320.0, 256.0]]
+
+
+def detector_rois(detector, frames, edge_rois=EDGE_ROIS):
+    """P2..P5 and the proposals the detector makes of `frames`, with edge
+    cases written over image 0's first rois (at the native geometry:
+    sub-pixel, across and beyond the image edge, 600 px, and an all-zero
+    padding box)."""
     from objectpermanence_tpu_torch.models.detector.detector import (
         forward_features, preprocess_images, propose,
     )
@@ -639,10 +667,7 @@ def detector_rois(detector, frames):
         images = torch.from_numpy(frames).to(detector.device)
         pyramid = forward_features(detector.model, preprocess_images(images, detector.config))
         proposals, _ = propose(detector.model, pyramid, detector.config, detector.anchors)
-    edge = torch.tensor([[10.2, 20.7, 10.6, 21.1], [-30.0, 200.0, 25.0, 260.0],
-                         [300.0, -50.0, 420.0, 10.0], [-5.0, -5.0, 595.0, 600.0],
-                         [0.0, 0.0, 0.0, 0.0], [319.5, 255.5, 320.0, 256.0]],
-                        device=proposals.device)
+    edge = torch.tensor(edge_rois, device=proposals.device)
     rois = proposals.clone()
     rois[0, :len(edge)] = edge
     return [p.detach() for p in pyramid[:4]], rois, assign_levels(rois)
@@ -651,6 +676,42 @@ def detector_rois(detector, frames):
 def roi_err(got, want):
     err = (got - want).abs().max().item()
     return err, ROI_RTOL * max(1.0, want.abs().max().item())
+
+
+def roi_pixels_read(feats, rois, levels, window=None):
+    """The (image, level, pixel) taps that the rois `(B, N)` reach with a
+    nonzero weight from a sample inside their level (inside their window,
+    with the windowed RoIAlign's `window`): the least a RoIAlign forward
+    must read, all C channels of each, for scripts/kernel_bounds.py."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align import _geometry
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    scales = 1.0 / torch.tensor(ROI_STRIDES, dtype=torch.float32, device=rois.device)
+    table = sum(h * w for h, w in shapes)
+    taps = []
+    for b in range(rois.shape[0]):
+        rows, weights, inside = _geometry(shapes, rois[b], levels[b], scales, 7, 2, window)
+        taps += [b * table + row[(weight != 0) & inside] for row, weight in zip(rows, weights)]
+    return int(torch.unique(torch.cat(taps)).numel())
+
+
+def roi_bound(feats, rois, levels, images, window=None):
+    """bound_ms, what bounds it and the MB moved for a RoIAlign forward of
+    `images` images from scripts/kernel_bounds.py, with the pixels this run's
+    rois reach; and the bound if the whole pyramid were read."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import kernel_bounds as kb
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    common = dict(images=images, channels=feats[0].shape[1], itemsize=feats[0].element_size())
+    pixels = roi_pixels_read(feats, rois[:images], levels[:images], window)
+    _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], pixels_read=pixels, **common)
+    _, _, whole = kb.roi_align(shapes, rois.shape[1], **common)
+    t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "mbytes": bytes_ / 1e6, "gflop": flops / 1e9, "pixels_read": pixels,
+            "pyramid_pixels": images * sum(h * w for h, w in shapes),
+            "whole_pyramid_bound_ms": max(t_ops, whole / kb.PEAK_BYTES) * 1e3}
 
 
 def phase_roi_align_vs_plain(detector):
@@ -737,7 +798,8 @@ def phase_preprocess_path(device):
     assert sorted(data) == names, f"videos written: {sorted(data)} of {names}"
     chunks = -(-FRAMES // config["batch_size"])
     assert launches["K7"] == chunks * len(names), f"K7 launches {launches}"
-    assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8")), launches
+    assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9")), \
+        launches
     kept = 0
     for name, video in data.items():
         assert set(video) == {"bb", "labels"} and len(video["bb"]) == len(video["labels"]) == FRAMES
@@ -796,18 +858,17 @@ def phase_preprocess_path(device):
     return launches
 
 
-def phase_detect_profile(detector, chunks=5, profile_chunks=3):
-    """Where a 30-frame chunk of the detector spends its time: the four
-    stages by CUDA events around each (the RPN's and postprocess's NMS rounds
-    wait on the host once per round), the whole call by the host clock
-    (frames up, detections down), then the device's busy share over a
+def profile_chunk(detector, frames, chunks=5, profile_chunks=3):
+    """Where one chunk of the detector spends its time: the four stages by
+    CUDA events around each (the RPN's and postprocess's NMS rounds wait on
+    the host once per round), the whole call by the host clock (frames up,
+    detections down), then the device's busy share and top 8 kernels over a
     torch.profiler window of whole calls."""
     from objectpermanence_tpu_torch.models.detector.detector import (
         batched_roi_align, forward_features, preprocess_images, propose,
     )
     from objectpermanence_tpu_torch.models.detector.roi_heads import postprocess_detections
     cfg, model = detector.config, detector.model
-    frames = fixture_video("CATER_fixture_000001")[:CHUNK]
     images = torch.from_numpy(frames).to(detector.device)
 
     def staged():
@@ -830,32 +891,14 @@ def phase_detect_profile(detector, chunks=5, profile_chunks=3):
     for _ in range(2):
         staged()
     runs = np.array([staged() for _ in range(chunks)])
-    stage_ms = dict(zip(("backbone_fpn", "rpn_proposals", "roi_align_k7",
-                         "box_head_postprocess"), runs.mean(0).tolist()))
+    stage_ms = dict(zip(("backbone_fpn", "rpn_proposals", "roi_align", "box_head_postprocess"),
+                        runs.mean(0).tolist()))
     detector(frames)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(chunks):
         detector(frames)
     chunk_ms = (time.perf_counter() - t0) / chunks * 1e3
-
-    # the pyramid's layout: NCHW (the detector's: cuDNN's native fp32
-    # layout, and K7's wrapper copies P2-P5 to NHWC) against channels_last
-    # (NHWC in memory, what K7 reads, but cuDNN transposes around its fp32
-    # convolutions), backbone+FPN and K7 together, in turns
-    with torch.inference_mode():
-        proposals, _ = propose(model, forward_features(model, preprocess_images(images, cfg)),
-                               cfg, detector.anchors)
-
-    def backbone_and_roi(memory_format):
-        with torch.inference_mode():
-            x = preprocess_images(images, cfg).contiguous(memory_format=memory_format)
-            batched_roi_align(model.backbone(x)[:4], proposals, cfg)
-
-    layouts = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
-    layout_runs = {name: [] for name in layouts}
-    for name in ("channels_last", "nchw", "nchw", "channels_last"):
-        layout_runs[name].append(time_ms(lambda: backbone_and_roi(layouts[name]), iters=5))
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -869,11 +912,247 @@ def phase_detect_profile(detector, chunks=5, profile_chunks=3):
     assert busy_ms > 0, "the profiler saw no device time"
     per_chunk = {name[:60]: ms / profile_chunks
                  for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
-    log("detect_profile", frames=CHUNK, stage_ms=json.dumps(stage_ms),
-        stages_sum_ms=sum(stage_ms.values()), chunk_ms=chunk_ms,
-        frames_per_s=CHUNK / (chunk_ms / 1e3), window_ms=window_ms,
-        device_busy_share=busy_ms / window_ms, per_chunk_ms=json.dumps(per_chunk),
-        backbone_fpn_k7_ms_by_layout=json.dumps(layout_runs))
+    return {"frames": len(frames), "stage_ms": json.dumps(stage_ms),
+            "stages_sum_ms": sum(stage_ms.values()), "chunk_ms": chunk_ms,
+            "frames_per_s": len(frames) / (chunk_ms / 1e3), "window_ms": window_ms,
+            "device_busy_share": busy_ms / window_ms, "per_chunk_ms": json.dumps(per_chunk)}
+
+
+def phase_detect_profile(detector):
+    """A 30-frame chunk at the shipped preprocess config (`profile_chunk`),
+    then the pyramid's layout: NCHW (the detector's: cuDNN's native fp32
+    layout, and K7's wrapper copies P2-P5 to NHWC) against channels_last
+    (NHWC in memory, what K7 reads, but cuDNN transposes around its fp32
+    convolutions), backbone+FPN and K7 together, in turns."""
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        batched_roi_align, forward_features, preprocess_images, propose,
+    )
+    cfg, model = detector.config, detector.model
+    frames = fixture_video("CATER_fixture_000001")[:CHUNK]
+    fields = profile_chunk(detector, frames)
+    images = torch.from_numpy(frames).to(detector.device)
+    with torch.inference_mode():
+        proposals, _ = propose(model, forward_features(model, preprocess_images(images, cfg)),
+                               cfg, detector.anchors)
+
+    def backbone_and_roi(memory_format):
+        with torch.inference_mode():
+            x = preprocess_images(images, cfg).contiguous(memory_format=memory_format)
+            batched_roi_align(model.backbone(x)[:4], proposals, cfg)
+
+    layouts = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
+    layout_runs = {name: [] for name in layouts}
+    for name in ("channels_last", "nchw", "nchw", "channels_last"):
+        layout_runs[name].append(time_ms(lambda: backbone_and_roi(layouts[name]), iters=5))
+    log("detect_profile", **fields, backbone_fpn_k7_ms_by_layout=json.dumps(layout_runs))
+
+
+def det800_detector(device, compute_dtype, **overrides):
+    """The 800 px recipe's detector (DET800) at full width, seeded init."""
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    return CaterDetector(DetectorConfig(**{**DET800, "compute_dtype": compute_dtype,
+                                           **overrides}), device=device)
+
+
+def det800_frames(count=DET800_BATCH):
+    """The first `count` frames of the 800 px path's fixture video."""
+    return fixture_video(f"CATER_fixture_{0:06d}", seed=DET800_SEED)[:count]
+
+
+def phase_roi_align_windowed_vs_plain(det_bf16):
+    """K9 (float32 and bfloat16) and K7's bfloat16 mode against their plain
+    versions on the inputs of one 800 px bf16 chunk (B=8 frames, N=300
+    proposals, C=256, P2-P5 of 200 x 272 to 25 x 34; K9 f32 reads the same
+    pyramid as float32), with EDGE_ROIS_800 over image 0's first rois, and
+    ragged (B=3, N=57). Limit 1e-4 x max(1, max |ref|). The count of
+    out-of-contract rois K9 adds on the device equals the plain mask's, and
+    is at least OUT_OF_CONTRACT_MIN."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_batched_reference, roi_align_windowed,
+        roi_align_windowed_reference,
+    )
+    feats16, rois, levels = detector_rois(det_bf16, det800_frames(), EDGE_ROIS_800)
+    assert all(f.dtype == torch.bfloat16 for f in feats16), [f.dtype for f in feats16]
+    feats32 = [f.float() for f in feats16]
+    cases = {"K9_f32": (roi_align_windowed, roi_align_windowed_reference, feats32),
+             "K9_bf16": (roi_align_windowed, roi_align_windowed_reference, feats16),
+             "K7_bf16_800": (roi_align_batched, roi_align_batched_reference, feats16)}
+    shapes = [(h, w, s) for (h, w), s in zip([tuple(f.shape[-2:]) for f in feats16],
+                                             ROI_STRIDES)]
+    errors = {}
+    for tag, (kernel, plain, feats) in cases.items():
+        for batch, n in ((DET800_BATCH, rois.shape[1]), (3, 57)):
+            args = ([f[:batch] for f in feats], rois[:batch, :n].contiguous(),
+                    levels[:batch, :n].contiguous(), ROI_STRIDES)
+            window_lib.reset_contract_stats()
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            stats = window_lib.contract_stats()
+            want = plain(*args)
+            err, limit = roi_err(got, want)
+            fields = {}
+            if tag.startswith("K9"):
+                mask = window_lib.windowed_out_of_contract_mask(
+                    args[1], args[2], shapes, channels=feats[0].shape[1],
+                    itemsize=feats[0].element_size())
+                fields = {"contract_stats": json.dumps(stats),
+                          "plain_out_of_contract": int(mask.sum())}
+                assert stats == {"rois": mask.numel(), "out_of_contract": int(mask.sum())}, fields
+                assert stats["out_of_contract"] >= OUT_OF_CONTRACT_MIN, fields
+            log("roi_align_windowed_vs_plain", kernel=tag, batch=batch, rois=n,
+                channels=feats[0].shape[1], max_abs_err=err, limit=limit,
+                max_abs_ref=want.abs().max().item(),
+                levels_used=sorted(set(args[2].flatten().tolist())), **fields)
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert torch.isfinite(got).all() and err <= limit, f"{tag} disagrees at B={batch}, N={n}"
+            errors[tag] = max(errors.get(tag, 0.0), err)
+    window_lib.reset_contract_stats()
+    return errors, (feats32, feats16, rois, levels)
+
+
+def native_bf16_detector(device):
+    """The shipped native-geometry config (configs/preprocess_config.json)
+    in bf16: its pyramid passes the 8 MiB test, so "auto" runs K7's bf16
+    mode."""
+    from objectpermanence_tpu_torch.config import preprocess_config_from
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    _, shipped = preprocess_config_from(json.loads(PREPROCESS_CONFIG.read_text()))
+    return CaterDetector(DetectorConfig(**shipped, compute_dtype="bfloat16"), device=device)
+
+
+def phase_roi_align_bf16_vs_plain(device):
+    """K7's bfloat16 mode against its plain version where the main path
+    launches it (`preprocess_800_path`'s native_bf16 chunk): on that chunk's
+    pyramid and proposals (B=8 frames, N=300, C=256, P2-P5 of 64 x 80 to
+    8 x 10) with EDGE_ROIS over image 0, and ragged (B=3, N=57). Limit
+    1e-4 x max(1, max |ref|)."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_batched_reference,
+    )
+    feats, rois, levels = detector_rois(native_bf16_detector(device), det800_frames())
+    assert all(f.dtype == torch.bfloat16 for f in feats), [f.dtype for f in feats]
+    worst = 0.0
+    for batch, n in ((DET800_BATCH, rois.shape[1]), (3, 57)):
+        args = ([f[:batch] for f in feats], rois[:batch, :n].contiguous(),
+                levels[:batch, :n].contiguous(), ROI_STRIDES)
+        got = roi_align_batched(*args)
+        torch.cuda.synchronize()
+        want = roi_align_batched_reference(*args)
+        err, limit = roi_err(got, want)
+        log("roi_align_bf16_vs_plain", kernel="K7_bf16", batch=batch, rois=n,
+            shapes=[tuple(f.shape[-2:]) for f in feats], max_abs_err=err, limit=limit,
+            max_abs_ref=want.abs().max().item(),
+            levels_used=sorted(set(args[2].flatten().tolist())))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.isfinite(got).all() and err <= limit, f"K7 bf16 disagrees at B={batch}, N={n}"
+        worst = max(worst, err)
+    return worst, (feats, rois, levels)
+
+
+def phase_preprocess_800_path(device):
+    """`python -m objectpermanence_tpu_torch preprocess` at the 800 px bf16
+    recipe (no geometry in the config: the 800 px defaults) on one 300-frame
+    fixture video, with the launch counts read around it: K9 once per chunk
+    of 8, nothing else. The same video again, and every valid detection of
+    its first chunk, with the plain windowed RoIAlign in K9's place. Then
+    one chunk each of the fp32 twin and of
+    `CaterDetector(DetectorConfig())` (frozen BN, RPN 1000/1000, "auto"):
+    K9 once, K7 never; and one chunk of the shipped native-geometry config
+    in bf16: K7's bf16 mode once."""
+    import objectpermanence_tpu_torch.models.detector.detector as det_module
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    from objectpermanence_tpu_torch.infer import preprocess
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_windowed_reference
+
+    work = WORK_DIR / "preprocess_800_path"
+    shutil.rmtree(work, ignore_errors=True)
+    videos = work / "videos"
+    videos.mkdir(parents=True)
+    name = f"CATER_fixture_{0:06d}"
+    (videos / f"{name}.avi").touch()
+    config = {**DET800, "compute_dtype": "bfloat16", "batch_size": DET800_BATCH,
+              "videos_dir": str(videos), "device": "cuda"}
+    (work / "preprocess.json").write_text(json.dumps(config))
+    preprocess.read_video_frames = lambda path: fixture_video(path, seed=DET800_SEED)
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_main(["preprocess", "--results_dir", str(work / "results"),
+                   "--config", str(work / "preprocess.json")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read()
+    assert rc == 0, f"preprocess CLI exit {rc}"
+    chunks = -(-FRAMES // DET800_BATCH)
+    assert launches["K9"] == chunks, f"K9 launches {launches}"
+    assert all(v == 0 for k, v in launches.items() if k != "K9"), launches
+    ours = read_pickles(work / "results")[name]
+    assert len(ours["bb"]) == len(ours["labels"]) == FRAMES
+    kept = sum(len(bb) for bb in ours["bb"])
+    assert all(np.isfinite(bb).all() and bb.dtype == np.float32 for bb in ours["bb"])
+
+    # every valid detection of one chunk (seeded weights keep few above 0.8)
+    det_bf16 = det800_detector(device, "bfloat16")
+    frames = det800_frames()
+    ours_chunk = det_bf16(frames)
+    kernel_fn = det_module.roi_align_windowed
+    det_module.roi_align_windowed = roi_align_windowed_reference
+    try:
+        preprocess.preprocess_main(str(work / "plain"), config)
+        plain_chunk = det_bf16(frames)
+    finally:
+        det_module.roi_align_windowed = kernel_fn
+    valid, plain_valid = ours_chunk[3], plain_chunk[3]
+    assert valid.sum() > 0 and np.array_equal(valid, plain_valid), "valid detections differ"
+    assert np.array_equal(ours_chunk[1][valid], plain_chunk[1][valid]), "labels differ"
+    chunk_box_diff = float(np.abs(ours_chunk[0][valid] - plain_chunk[0][valid]).max())
+    chunk_score_diff = float(np.abs(ours_chunk[2][valid] - plain_chunk[2][valid]).max())
+    assert chunk_box_diff <= BOX_PX and chunk_score_diff <= 1e-5, (chunk_box_diff, chunk_score_diff)
+    plain = read_pickles(work / "plain")[name]
+    flipped, box_diff = 0, 0.0
+    for bb, labels, pbb, plabels in zip(ours["bb"], ours["labels"], plain["bb"], plain["labels"]):
+        if len(labels) != len(plabels) or not np.array_equal(labels, plabels):
+            flipped += 1
+        elif len(bb):
+            box_diff = max(box_diff, float(np.abs(bb - pbb).max()))
+    log("preprocess_800_path", videos=1, frames=FRAMES, batch_size=DET800_BATCH,
+        seconds=f"{seconds:.3f}", frames_per_s=FRAMES / seconds, launches=json.dumps(launches),
+        kept_detections=kept, kept_per_frame=kept / FRAMES, plain_roi_flipped_frames=flipped,
+        plain_roi_max_box_diff_px=box_diff, chunk_valid_detections=int(valid.sum()),
+        chunk_plain_max_box_diff_px=chunk_box_diff, chunk_plain_max_score_diff=chunk_score_diff)
+    assert flipped <= FRAME_FLIP_SHARE * FRAMES, f"{flipped} frames differ from plain K9"
+    assert box_diff <= BOX_PX, f"boxes {box_diff} px from plain K9"
+
+    chunk_launches = {}
+    for label, detector in (
+            ("fp32_windowed", det800_detector(device, "float32")),
+            ("default_config", CaterDetector(DetectorConfig(), device=device)),
+            ("native_bf16", native_bf16_detector(device))):
+        read = reset_launches()
+        boxes, _, scores, valid = detector(frames)
+        torch.cuda.synchronize()
+        counts = read()
+        chunk_launches[label] = counts
+        assert boxes.shape == (DET800_BATCH, detector.config.detections_per_img, 4)
+        assert np.isfinite(boxes[valid]).all() and np.isfinite(scores[valid]).all()
+        want = "K7" if label == "native_bf16" else "K9"
+        assert counts[want] == 1 and sum(counts.values()) == 1, (label, counts)
+    log("preprocess_800_chunks", launches=json.dumps(chunk_launches))
+    return {"K9_bf16": launches["K9"],
+            "K9_f32": chunk_launches["fp32_windowed"]["K9"] + chunk_launches["default_config"]["K9"],
+            "K7_bf16": chunk_launches["native_bf16"]["K7"]}
+
+
+def phase_detect_800_profile(det_bf16, det_fp32):
+    """One chunk of 8 frames at the 800 px recipe, in bf16 and in fp32
+    (`profile_chunk`): stages, chunk time, busy share, top kernels."""
+    frames = det800_frames()
+    for label, detector in (("bf16", det_bf16), ("fp32", det_fp32)):
+        log("detect_800_profile", compute_dtype=label, **profile_chunk(detector, frames))
 
 
 ROI_KERNELS = {
@@ -885,8 +1164,8 @@ ROI_KERNELS = {
 
 def phase_roi_times(inputs, launches, errors):
     """K7 at the detector's B=30, N=300 and K5/K6 at B=1, N=300, each beside
-    its bound (scripts/kernel_bounds.py at these shapes) and its plain
-    version, in turns: plain, kernel, kernel, plain. `ms` is the wrapper's
+    its bound (scripts/kernel_bounds.py with the pixels the rois reach) and
+    its plain version, in turns: plain, kernel, kernel, plain. `ms` is the wrapper's
     time on the NCHW levels the detector gives it, their copy to NHWC
     included; `nhwc_ms`, logged beside it, the same call on levels already
     NHWC in memory. No single PyTorch call computes RoIAlign (torchvision,
@@ -894,11 +1173,8 @@ def phase_roi_times(inputs, launches, errors):
     from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
     from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
     from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
-    sys.path.insert(0, str(REPO / "scripts"))
-    import kernel_bounds as kb
     feats, rois, levels = inputs
     nhwc = [f.contiguous(memory_format=torch.channels_last) for f in feats]
-    shapes = [tuple(f.shape[-2:]) for f in feats]
     channels = feats[0].shape[1]
 
     def args(tag, levels_in):
@@ -919,15 +1195,11 @@ def phase_roi_times(inputs, launches, errors):
             nhwc_ms = time_ms(lambda: kernel(*nhwc_args), iters=20)
             kernel_b = time_ms(lambda: kernel(*main_args), iters=20)
             plain_b = time_ms(lambda: plain(*main_args), iters=3, warmup=1)
-        _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=images, channels=channels)
-        t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
         row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
                "nhwc_ms": nhwc_ms,
                "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        log("times", kernel=tag, images=images, rois=rois.shape[1], channels=channels,
-            mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row)
+               **roi_bound(feats, rois, levels, images)}
+        log("times", kernel=tag, images=images, rois=rois.shape[1], channels=channels, **row)
         name, site = ROI_KERNELS[tag]
         rows.append({"name": name, "route": "cuda",
                      "source": "objectpermanence_tpu_torch/csrc/roi_align.cu", "replaces": site,
@@ -1037,7 +1309,7 @@ def phase_detector_train_path(train_set, dev_set):
                   print_step=2, seed=0, device="cuda")
     steps = -(-len(train_set) // DET_BATCH)
     eval_chunks = -(-len(dev_set) // 8)  # evaluate_detector's batches of 8
-    others = ("K1", "K2", "K3", "K4", "K5", "K6")
+    others = ("K1", "K2", "K3", "K4", "K5", "K6", "K9")
 
     read = reset_launches()
     t0 = time.perf_counter()
@@ -1260,6 +1532,67 @@ def phase_k8_times(inputs, launches, max_abs_err):
             "bound_by": row["bound_by"], "library_ms": None}, row["nchw_copy_ms"]
 
 
+WINDOWED_KERNELS = {
+    "K9_f32": ("roi_align_windowed (f32)", "objectpermanence_tpu/ops/pallas_roi_align.py:1052"),
+    "K9_bf16": ("roi_align_windowed (bf16)", "objectpermanence_tpu/ops/pallas_roi_align.py:1052"),
+    "K7_bf16": ("roi_align_batched (bf16)", "objectpermanence_tpu/ops/pallas_roi_align.py:679"),
+}
+
+
+def phase_windowed_times(inputs, native_bf16_inputs, launches, errors):
+    """K9 in float32 and bfloat16 at the 800 px chunk (B=8, N=300, C=256,
+    P2-P5 of 200 x 272 to 25 x 34) and K7's bfloat16 mode where the main
+    path runs it (B=8, N=300, the native pyramid), each beside its bound
+    (scripts/kernel_bounds.py with the features' element size and the pixels
+    the rois reach: for K9, inside their windows) and its plain version, in
+    turns: plain, kernel, kernel, plain. `ms` is the wrapper's time on the
+    NCHW levels the detector gives it, their copy to NHWC included. K7's
+    bf16 mode on the 800 px chunk is logged beside K9. K7 bf16's
+    max_abs_err is the larger of its two comparisons. No PyTorch call
+    computes RoIAlign, so library_ms is null."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    feats32, feats16, rois, levels = inputs
+    cases = {"K9_f32": (rk.roi_align_windowed, rk.roi_align_windowed_reference,
+                        (feats32, rois, levels)),
+             "K9_bf16": (rk.roi_align_windowed, rk.roi_align_windowed_reference,
+                         (feats16, rois, levels)),
+             "K7_bf16": (rk.roi_align_batched, rk.roi_align_batched_reference,
+                         native_bf16_inputs)}
+    errors = {**errors, "K7_bf16": max(errors["K7_bf16"], errors["K7_bf16_800"])}
+    rows = []
+    for tag, (kernel, plain, (feats, tag_rois, tag_levels)) in cases.items():
+        args = (feats, tag_rois, tag_levels, ROI_STRIDES)
+        with torch.inference_mode():
+            plain_a = time_ms(lambda: plain(*args), iters=3, warmup=1)
+            kernel_a = time_ms(lambda: kernel(*args), iters=20)
+            kernel_b = time_ms(lambda: kernel(*args), iters=20)
+            plain_b = time_ms(lambda: plain(*args), iters=3, warmup=1)
+        window = None
+        if tag.startswith("K9"):
+            window = window_lib.Window.of([tuple(f.shape[-2:]) for f in feats], feats[0].shape[1],
+                                          feats[0].element_size())
+        row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
+               "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
+               **roi_bound(feats, tag_rois, tag_levels, tag_rois.shape[0], window)}
+        log("times", kernel=tag, images=tag_rois.shape[0], rois=tag_rois.shape[1],
+            channels=feats[0].shape[1], shapes=[tuple(f.shape[-2:]) for f in feats], **row)
+        name, site = WINDOWED_KERNELS[tag]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "objectpermanence_tpu_torch/csrc/roi_align.cu", "replaces": site,
+                     "launches": launches[tag], "max_abs_err": errors[tag], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": None})
+    args = (feats16, rois, levels, ROI_STRIDES)
+    with torch.inference_mode():
+        k7_800_ms = time_ms(lambda: rk.roi_align_batched(*args), iters=20)
+    log("times", kernel="K7_bf16_800", images=rois.shape[0], rois=rois.shape[1], ms=k7_800_ms,
+        **roi_bound(feats16, rois, levels, rois.shape[0]))
+    window_lib.reset_contract_stats()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1271,7 +1604,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    name, count, _ = phase_device()
+    name, count, smi = phase_device()
     phase_build()
     weights = flagship_weights(device)
     max_abs_err = compare_kernel(BATCH, weights, device)
@@ -1279,21 +1612,29 @@ def main() -> int:
     lstm_errors = phase_lstm_vs_plain(weights, device)
     detector = detector_setup(device)
     roi_errors, roi_inputs = phase_roi_align_vs_plain(detector)
+    det800_bf16 = det800_detector(device, "bfloat16")
+    windowed_errors, windowed_inputs = phase_roi_align_windowed_vs_plain(det800_bf16)
+    windowed_errors["K7_bf16"], native_bf16_inputs = phase_roi_align_bf16_vs_plain(device)
     train_set, dev_set = detection_sets(REPO / "build" / "chip_smoke_detection")
     k8_error, k8_inputs = phase_roi_align_grad_vs_plain(dettrain_detector(device), train_set)
     launches = phase_main_path(weights, device)
     train_launches = phase_train_path(device)
     preprocess_launches = phase_preprocess_path(device)
     detector_train_launches = phase_detector_train_path(train_set, dev_set)
+    preprocess_800_launches = phase_preprocess_800_path(device)
     phase_detector_train_step_swap(device, train_set)
     phase_train_step_profile(device)
     phase_detect_profile(detector)
+    phase_detect_800_profile(det800_bf16, det800_detector(device, "float32"))
     kernels = [phase_times(weights, device, launches, max_abs_err)]
     kernels += phase_lstm_times(weights, device, train_launches, lstm_errors)
     kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
     k8_row, k8_copy_ms = phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error)
     kernels.append(k8_row)
+    kernels += phase_windowed_times(windowed_inputs, native_bf16_inputs, preprocess_800_launches,
+                                    windowed_errors)
     phase_detector_train_step_profile(device, train_set, k8_copy_ms)
+    print(smi, flush=True)  # again, so that the output's end names the card and its limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

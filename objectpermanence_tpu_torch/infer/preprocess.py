@@ -61,7 +61,9 @@ def preprocess_main(results_dir: str, config: Dict, device=None) -> List[str]:
     (`preprocess_perception_main.py:92-96`). Returns the names written.
 
     Any `DetectorConfig` field may be set in the config (`min_size: 240`,
-    `max_size: 320` run native CATER frames); `od_model_weights` is a
+    `max_size: 320` run native CATER frames; without them, the 800 px
+    recipe's geometry; `compute_dtype: "bfloat16"` and `roi_backend:
+    "windowed"` give its served configuration); `od_model_weights` is a
     `.npz` or a torchvision `.pth`, or absent for seeded random weights.
     `device` defaults to the config's: "cpu" is the CPU, anything else the
     card. A video that fails to decode, or has another frame count, is

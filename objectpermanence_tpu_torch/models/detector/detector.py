@@ -7,14 +7,17 @@ fixed pyramid, proposals and detections are fixed-width tensors padded with
 `NEG_INF` scores. Where JAX `vmap`s over the frames of a chunk, the port
 runs the chunk as a batch dimension: NMS takes every (image, level) pair in
 one call, RoIAlign every image in one launch (`ops/roi_align_kernel.py`:
-K7, and in training K8 for its backward), the box head every roi of the
-chunk in one product.
+K7, in training K8 for its backward, and K9 for the 800 px pyramid), the
+box head every roi of the chunk in one product.
 
-The backbone runs NCHW, cuDNN's own fp32 layout; the RoIAlign kernel's
-wrapper copies P2-P5 to NHWC once per chunk. On the H100 that is faster
-than a channels_last backbone, around whose fp32 convolutions cuDNN
-transposes (PERF.md). float32 only; TF32 is switched off for matmuls and
-cuDNN.
+`compute_dtype="bfloat16"` runs the backbone, FPN and heads in bfloat16
+with the parameters kept float32 (each layer casts them, `resnet.py`); the
+image is resized in float32 first, the heads emit float32, and box decode,
+top-k, NMS and postprocess stay float32, as in JAX. The backbone runs NCHW,
+cuDNN's own layout; the RoIAlign kernel's wrapper copies P2-P5 to NHWC once
+per chunk. On the H100 that is faster than a channels_last backbone, around
+whose fp32 convolutions cuDNN transposes (PERF.md). TF32 is switched off
+for matmuls and cuDNN.
 """
 
 import math
@@ -35,7 +38,10 @@ from objectpermanence_tpu_torch.models.detector.roi_heads import (
 )
 from objectpermanence_tpu_torch.models.detector.rpn import RPNHead, generate_proposals
 from objectpermanence_tpu_torch.ops.nms import NEG_INF
-from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_batched, roi_align_trainable
+from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+    roi_align_batched, roi_align_trainable, roi_align_windowed,
+)
+from objectpermanence_tpu_torch.ops.roi_align_window import contract_stats
 
 # the reference divides frames by 256 before the detector, then applies the
 # ImageNet mean/std of the torchvision transform
@@ -61,10 +67,11 @@ class DetectorConfig:
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     detections_per_img: int = 100
-    compute_dtype: str = "float32"    # only float32 is ported
-    # "auto", "pallas" and "gather" all run the exact RoIAlign kernel on
-    # the card (the same function JAX's gather computes); "windowed" is K9's
-    # backend, not ported yet
+    # "bfloat16": backbone, FPN and heads in bf16 (params stay float32)
+    compute_dtype: str = "float32"
+    # "pallas" and "gather" run the exact RoIAlign (K7 on the card, the same
+    # function JAX's gather computes), "windowed" K9; "auto" picks between
+    # them by JAX's TPU rule (`roi_path`)
     roi_backend: str = "auto"
 
     @property
@@ -92,23 +99,22 @@ class DetectorConfig:
 
 
 def check_supported(config: DetectorConfig, training: bool = False) -> None:
-    """Raise on the options the port does not run yet."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r}: the port's detector runs float32 only; "
-            f"the bf16 detector is ROADMAP.md, Next slices, item 1 (the 800 px path)")
-    if config.roi_backend == "windowed" and training:
-        raise NotImplementedError(
-            "roi_backend='windowed' in training is roi_align_windowed_trainable, whose "
-            "forward is K9 (roi_align_pallas_windowed), not ported yet; see ROADMAP.md, "
-            "Next slices, item 1 (the 800 px path with K9)")
-    if config.roi_backend == "windowed":
-        raise NotImplementedError(
-            "roi_backend='windowed' is K9 (roi_align_pallas_windowed), not ported yet; "
-            "see ROADMAP.md, Next slices, item 1 (the 800 px path with K9)")
-    if config.roi_backend not in ("auto", "pallas", "gather"):
+    """Raise on the options the port does not run yet: bf16 and the
+    windowed RoIAlign in training."""
+    if config.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"got {config.compute_dtype!r}")
+    if config.roi_backend not in ("auto", "pallas", "gather", "windowed"):
         raise ValueError(f"roi_backend must be auto, pallas, gather or windowed, "
                          f"got {config.roi_backend!r}")
+    if training and config.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={config.compute_dtype!r} in training (K8 on the bf16 pyramid's "
+            f"float32 cotangent) is ROADMAP.md, Next slices, item 1 (800 px training)")
+    if training and config.roi_backend == "windowed":
+        raise NotImplementedError(
+            "roi_backend='windowed' in training is roi_align_windowed_trainable (K9 forward, "
+            "K8 backward), ROADMAP.md, Next slices, item 1 (800 px training)")
 
 
 class BackboneWithFPN(nn.Module):
@@ -140,6 +146,7 @@ class Detector(nn.Module):
 
     def __init__(self, config: DetectorConfig):
         super().__init__()
+        self.compute_dtype = getattr(torch, config.compute_dtype)
         self.backbone = BackboneWithFPN(config)
         self.rpn = RPN(config.fpn_channels)
         self.roi_heads = RoIHeads(config.fpn_channels, 7, 1024, config.num_classes)
@@ -195,8 +202,9 @@ def preprocess_images(images: torch.Tensor, config: DetectorConfig) -> torch.Ten
 
 
 def forward_features(model: Detector, images_prepped: torch.Tensor) -> List[torch.Tensor]:
-    """Backbone + FPN -> [P2..P6], each (B, C, H_l, W_l)."""
-    return model.backbone(images_prepped)
+    """Backbone + FPN over the float32 preprocessed images, in the model's
+    compute dtype -> [P2..P6], each (B, C, H_l, W_l)."""
+    return model.backbone(images_prepped.to(model.compute_dtype))
 
 
 def propose(model: Detector, pyramid: List[torch.Tensor], config: DetectorConfig,
@@ -207,18 +215,47 @@ def propose(model: Detector, pyramid: List[torch.Tensor], config: DetectorConfig
                               config.rpn_post_nms_top_n, config.rpn_nms_thresh)
 
 
+RESIDENT_BYTES = 8 * 2 ** 20  # JAX's VMEM test for K7's resident pyramid
+
+
+def roi_path(config: DetectorConfig, device: torch.device, needs_grad: bool) -> str:
+    """"exact" (K7, with K8 for a gradient) or "windowed" (K9): JAX's
+    `_use_pallas_roi` with the card in the TPU's place. "windowed" asks
+    for K9, "pallas" and "gather" for the exact function. "auto" is exact
+    off the card, and on it where K7's TPU kernel ran: a channel count that
+    is a multiple of 128 and P2-P5 of one image within 8 MiB of float32
+    (the native 240 x 320 geometry); a larger pyramid (the 800 px recipe)
+    takes K9 in inference and the exact pair when a gradient is needed."""
+    if config.roi_backend == "windowed":
+        return "windowed"
+    if config.roi_backend != "auto" or device.type != "cuda" or config.fpn_channels % 128:
+        return "exact"
+    h, w = config.padded_hw
+    positions = sum(math.ceil(h / s) * math.ceil(w / s) for s in ROI_STRIDES)
+    if positions * config.fpn_channels * 4 <= RESIDENT_BYTES or needs_grad:
+        return "exact"
+    return "windowed"
+
+
 def batched_roi_align(pyramid: List[torch.Tensor], proposals: torch.Tensor,
                       config: DetectorConfig) -> torch.Tensor:
-    """P2..P5 (B, C, H_l, W_l) + proposals (B, N, 4) -> (B, N, C, 7, 7):
-    each roi pooled from its assigned level, by the RoIAlign kernel on the
-    card (K7, `roi_align_pallas_batched` in JAX) and by its plain version on
-    the CPU. When a gradient is recorded for the pyramid, through the
-    autograd Function whose backward is K8; the proposals get none."""
-    check_supported(config)
+    """P2..P5 (B, C, H_l, W_l) + proposals (B, N, 4) -> (B, N, C, 7, 7) in
+    the pyramid's dtype: each roi pooled from its assigned level, by the
+    kernel `roi_path` picks on the card (K7, `roi_align_pallas_batched` in
+    JAX, or K9, `roi_align_pallas_windowed`) and by its plain version on the
+    CPU. When a gradient is recorded for the pyramid, through the autograd
+    Function whose backward is K8; the proposals get none."""
+    needs_grad = torch.is_grad_enabled() and any(p.requires_grad for p in pyramid)
+    check_supported(config, training=needs_grad)
     levels = assign_levels(proposals)
-    if torch.is_grad_enabled() and any(p.requires_grad for p in pyramid):
-        return roi_align_trainable(pyramid, proposals, levels, ROI_STRIDES)
-    return roi_align_batched(pyramid, proposals, levels, ROI_STRIDES)
+    path = roi_path(config, proposals.device, needs_grad)
+    if path == "windowed":
+        pooled = roi_align_windowed(pyramid, proposals, levels, ROI_STRIDES)
+    elif needs_grad:
+        pooled = roi_align_trainable(pyramid, proposals, levels, ROI_STRIDES)
+    else:
+        pooled = roi_align_batched(pyramid, proposals, levels, ROI_STRIDES)
+    return pooled.to(pyramid[0].dtype)
 
 
 def detect_forward(model: Detector, images: torch.Tensor, config: DetectorConfig,
@@ -280,10 +317,15 @@ class CaterDetector:
 
     @torch.inference_mode()
     def __call__(self, frames):
-        """frames (B, H, W, 3) RGB -> (boxes, labels, scores, valid) as numpy."""
+        """frames (B, H, W, 3) RGB -> (boxes, labels, scores, valid) as numpy.
+        Then reads the windowed RoIAlign's contract counts, which warns once
+        on the first out-of-contract roi (the outputs' copy has synchronised
+        the card already)."""
         images = torch.as_tensor(np.asarray(frames)).to(self.device)
         out = detect_forward(self.model, images, self.config, self.anchors)
-        return tuple(o.cpu().numpy() for o in out)
+        result = tuple(o.cpu().numpy() for o in out)
+        contract_stats()
+        return result
 
     def detect_video(self, frames: np.ndarray, batch_size: int = 16):
         """All frames of one video, `batch_size` at a time -> (boxes, labels,

@@ -6,6 +6,14 @@
 loads with `load_state_dict(strict=True)`. ResNet v1.5: the stride sits on
 `conv2` of a stage's first bottleneck. Convolutions pad `k // 2` on both
 sides, as torch does and as the JAX package does by hand.
+
+Mixed precision: parameters and buffers stay float32 masters; every layer
+computes in its input's dtype, casting them first, as the JAX package casts
+its parameter tree to `compute_dtype` (`cast_floating`). A bfloat16 input
+so stays bfloat16 through the net; without the casts, torch's promotion
+would take it back to float32 at the first norm. A float32 input skips the
+casts, so a float32 layer costs the host what torch's own does (the
+detector's train step waits on the host).
 """
 
 from typing import List, Sequence
@@ -28,23 +36,46 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        w = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * w
+        weight, bias, mean, var = self.weight, self.bias, self.running_mean, self.running_var
+        if x.dtype != weight.dtype:
+            weight, bias, mean, var = (t.to(x.dtype) for t in (weight, bias, mean, var))
+        w = weight * torch.rsqrt(var + self.eps)
+        b = bias - mean * w
         return x * w[:, None, None] + b[:, None, None]
+
+
+class GroupNorm(nn.GroupNorm):
+    """`nn.GroupNorm` in its input's dtype."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` in its input's dtype."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def make_norm(channels: int, norm: str) -> nn.Module:
     """"frozen" (fine-tuning pretrained weights) or "group": GroupNorm with
     min(32, C) groups, the from-scratch choice."""
     if norm == "group":
-        return nn.GroupNorm(min(32, channels), channels, eps=1e-5)
+        return GroupNorm(min(32, channels), channels, eps=1e-5)
     if norm == "frozen":
         return FrozenBatchNorm2d(channels)
     raise ValueError(f"backbone_norm must be 'frozen' or 'group', got {norm!r}")
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
 
 class Bottleneck(nn.Module):

@@ -28,11 +28,20 @@ def assign_levels(rois: torch.Tensor, k_min: int = 2, k_max: int = 5) -> torch.T
     return (k.clamp(k_min, k_max) - k_min).to(torch.int32)
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` in its input's dtype (parameters stay float32 masters)."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class TwoMLPHead(nn.Module):
     def __init__(self, in_dim: int, representation: int = 1024):
         super().__init__()
-        self.fc6 = nn.Linear(in_dim, representation)
-        self.fc7 = nn.Linear(representation, representation)
+        self.fc6 = Linear(in_dim, representation)
+        self.fc7 = Linear(representation, representation)
 
     def forward(self, x):
         return F.relu(self.fc7(F.relu(self.fc6(x))))
@@ -41,8 +50,8 @@ class TwoMLPHead(nn.Module):
 class FastRCNNPredictor(nn.Module):
     def __init__(self, representation: int = 1024, num_classes: int = 193):
         super().__init__()
-        self.cls_score = nn.Linear(representation, num_classes)
-        self.bbox_pred = nn.Linear(representation, num_classes * 4)
+        self.cls_score = Linear(representation, num_classes)
+        self.bbox_pred = Linear(representation, num_classes * 4)
 
 
 class RoIHeads(nn.Module):
@@ -55,11 +64,13 @@ class RoIHeads(nn.Module):
     def forward(self, roi_features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """roi_features (..., C, p, p) -> (cls_logits (..., K), box_deltas
         (..., K, 4)). The flatten is C-major, torch's (N, C, 7, 7) order,
-        so fc6's columns line up with torchvision's and the JAX package's."""
+        so fc6's columns line up with torchvision's and the JAX package's.
+        Runs in the features' dtype and emits float32, for the decode, the
+        scores and the losses."""
         lead = roi_features.shape[:-3]
         x = self.box_head(roi_features.reshape(*lead, -1))
-        cls_logits = self.box_predictor.cls_score(x)
-        box_deltas = self.box_predictor.bbox_pred(x)
+        cls_logits = self.box_predictor.cls_score(x).float()
+        box_deltas = self.box_predictor.bbox_pred(x).float()
         return cls_logits, box_deltas.reshape(*lead, -1, 4)
 
 

@@ -27,15 +27,16 @@ class RPNHead(nn.Module):
     def forward(self, features: List[torch.Tensor]) -> Tuple[List[torch.Tensor],
                                                              List[torch.Tensor]]:
         """Per level: objectness (B, H*W*A) and deltas (B, H*W*A, 4), in the
-        JAX package's cell-major, then anchor, order."""
+        JAX package's cell-major, then anchor, order. Runs in the features'
+        dtype and emits float32, for the box decode and the scores."""
         objectness, deltas = [], []
         for feat in features:
             t = F.relu(self.conv(feat))
             cls = self.cls_logits(t).permute(0, 2, 3, 1)         # (B, H, W, A)
             reg = self.bbox_pred(t).permute(0, 2, 3, 1)          # (B, H, W, A*4)
             b = cls.shape[0]
-            objectness.append(cls.reshape(b, -1))
-            deltas.append(reg.reshape(b, -1, 4))
+            objectness.append(cls.reshape(b, -1).float())
+            deltas.append(reg.reshape(b, -1, 4).float())
         return objectness, deltas
 
 

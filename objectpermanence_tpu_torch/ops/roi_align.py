@@ -1,6 +1,7 @@
 """RoIAlign in plain PyTorch, the counterpart of
 `objectpermanence_tpu/ops/roi_align.py`, and the plain version of the
-RoIAlign kernel (`ops/roi_align_kernel.py`, `csrc/roi_align.cu`).
+RoIAlign kernel (`ops/roi_align_kernel.py`, `csrc/roi_align.cu`). Its
+geometry also serves the windowed RoIAlign (`ops/roi_align_window.py`).
 
 torchvision semantics with `aligned=False`: each roi's box is scaled to its
 level, its sides are at least 1 pixel, and each of the `pooled x pooled`
@@ -21,24 +22,12 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def _geometry(shapes: Sequence[Tuple[int, int]], rois: torch.Tensor, levels: torch.Tensor,
-              scales: torch.Tensor, pooled: int, sampling_ratio: int):
-    """Where each roi's samples fall in the concatenated level table (levels
-    `shapes [(H_l, W_l)]`, row-major, one row per pixel): for the N rois'
-    k*k samples (k = pooled * sampling_ratio, y-major), the four taps' table
-    rows `(N, k*k)` each, their bilinear weights and the inside mask."""
+def _sample_coords(rois: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
+                   pooled: int, sampling_ratio: int):
+    """Each roi's top-left corner scaled to its level, `x1, y1 (N,)`, and its
+    k = pooled * sampling_ratio sample coordinates per axis, `xs, ys (N, k)`."""
     device = rois.device
-    offsets, offset = [], 0
-    for h, w in shapes:
-        offsets.append(offset)
-        offset += h * w
-    levels = levels.to(torch.int64)
-    base = torch.tensor(offsets, device=device)[levels][:, None]
-    h = torch.tensor([s[0] for s in shapes], device=device)[levels][:, None]
-    w = torch.tensor([s[1] for s in shapes], device=device)[levels][:, None]
-    fh, fw = h.to(torch.float32), w.to(torch.float32)
-
-    r = rois.to(torch.float32) * scales[levels][:, None]
+    r = rois.to(torch.float32) * scales[levels.to(torch.int64)][:, None]
     x1, y1 = r[:, 0], r[:, 1]
     roi_w = (r[:, 2] - r[:, 0]).clamp(min=1.0)
     roi_h = (r[:, 3] - r[:, 1]).clamp(min=1.0)
@@ -51,6 +40,33 @@ def _geometry(shapes: Sequence[Tuple[int, int]], rois: torch.Tensor, levels: tor
     inv_pooled = torch.tensor(1.0, dtype=torch.float32) / pooled
     ys = _fma(grid[None, :], (roi_h * inv_pooled)[:, None], y1[:, None])
     xs = _fma(grid[None, :], (roi_w * inv_pooled)[:, None], x1[:, None])
+    return x1, y1, xs, ys
+
+
+def _per_level(values: Sequence[int], levels: torch.Tensor) -> torch.Tensor:
+    """(N, 1) int64: each roi's entry of the per-level `values`."""
+    return torch.tensor(list(values), device=levels.device)[levels.to(torch.int64)][:, None]
+
+
+def _geometry(shapes: Sequence[Tuple[int, int]], rois: torch.Tensor, levels: torch.Tensor,
+              scales: torch.Tensor, pooled: int, sampling_ratio: int, window=None):
+    """Where each roi's samples fall in the concatenated level table (levels
+    `shapes [(H_l, W_l)]`, row-major, one row per pixel): for the N rois'
+    k*k samples (k = pooled * sampling_ratio, y-major), the four taps' table
+    rows `(N, k*k)` each, their bilinear weights and the inside mask.
+
+    `window` (`ops/roi_align_window.py::Window`) gives each roi a square
+    window of its level, as the windowed kernel K9 reads it: a tap outside
+    the window gets weight 0."""
+    offsets, offset = [], 0
+    for h, w in shapes:
+        offsets.append(offset)
+        offset += h * w
+    base = _per_level(offsets, levels)
+    h = _per_level([s[0] for s in shapes], levels)
+    w = _per_level([s[1] for s in shapes], levels)
+    fh, fw = h.to(torch.float32), w.to(torch.float32)
+    x1, y1, xs, ys = _sample_coords(rois, levels, scales, pooled, sampling_ratio)
 
     n, k = ys.shape
     yy = ys[:, :, None].expand(n, k, k).reshape(n, k * k)
@@ -66,18 +82,28 @@ def _geometry(shapes: Sequence[Tuple[int, int]], rois: torch.Tensor, levels: tor
     lx = x - x0
     hy = 1.0 - ly
     hx = 1.0 - lx
+    if window is not None:
+        oy = window.origins(y1, _per_level(window.padded_h, levels)[:, 0], window.y_quant)
+        ox = window.origins(x1, _per_level(window.padded_w, levels)[:, 0], window.x_quant)
+        zero = torch.zeros((), dtype=ly.dtype, device=ly.device)
+        hy = torch.where(window.holds(y0, oy), hy, zero)
+        ly = torch.where(window.holds(y1c, oy), ly, zero)
+        hx = torch.where(window.holds(x0, ox), hx, zero)
+        lx = torch.where(window.holds(x1c, ox), lx, zero)
     rows = [base + yi * w + xi for yi, xi in ((y0, x0), (y0, x1c), (y1c, x0), (y1c, x1c))]
     weights = [hy * hx, hy * lx, ly * hx, ly * lx]
     return rows, weights, inside
 
 
 def _align(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,
-           scales: torch.Tensor, pooled: int, sampling_ratio: int) -> torch.Tensor:
+           scales: torch.Tensor, pooled: int, sampling_ratio: int, window=None) -> torch.Tensor:
     """RoIAlign of each roi from its level of `features [(C, H_l, W_l)]`,
-    with `scales (L,)` float32 taking image coordinates to each level's."""
+    with `scales (L,)` float32 taking image coordinates to each level's;
+    with `window`, only the taps inside each roi's window count."""
     c = features[0].shape[0]
     shapes = [tuple(f.shape[1:]) for f in features]
-    rows, weights, inside = _geometry(shapes, rois, levels, scales, pooled, sampling_ratio)
+    rows, weights, inside = _geometry(shapes, rois, levels, scales, pooled, sampling_ratio,
+                                      window)
     # row-major (S, C) table: one contiguous C-wide row per pixel
     table = torch.cat([f.permute(1, 2, 0).reshape(-1, c) for f in features])
     val = (table[rows[0]] * weights[0][..., None] + table[rows[1]] * weights[1][..., None] +

@@ -18,11 +18,17 @@ Counterparts of `objectpermanence_tpu/ops/pallas_roi_align.py`:
   `stop_gradient`s give them none in JAX.
 - `roi_align_trainable` (`_tiled_batched_diff`, the custom VJP): K7 forward,
   K8 backward, under `RoIAlignFunction`.
+- `roi_align_windowed` (K9, `roi_align_pallas_windowed`): K7's function
+  with the taps outside each roi's window dropped (`ops/roi_align_window.py`),
+  counting its out-of-contract rois.
 
 Each entry point counts its own launches. On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it runs the plain version,
-`ops/roi_align.py::multilevel_roi_align` (per image) and
-`multilevel_roi_align_backward`. fp32 only.
+`ops/roi_align.py::multilevel_roi_align` (per image),
+`multilevel_roi_align_backward` and
+`ops/roi_align_window.py::multilevel_roi_align_windowed`. The forwards take
+float32 or bfloat16 features and return float32 (the plain versions read
+bfloat16 as float32); K8 is float32.
 
 The kernel reads each level NHWC-contiguous: a level in channels_last memory
 format is passed as it is; any other layout, such as the detector's NCHW
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from objectpermanence_tpu_torch.ops import _build
+from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
 from objectpermanence_tpu_torch.ops.roi_align import (
     multilevel_roi_align, multilevel_roi_align_backward,
 )
@@ -51,14 +58,16 @@ _FNS = {}
 
 
 def _kernel(name: str = "roi_align_forward_f32"):
-    """The C entry `name` of the library (forward or backward; both take the
-    same arguments)."""
+    """The C entry `name` of the library. Forwards and backward take the
+    same arguments; the windowed forwards add the window (three ints) and
+    the out-of-contract count's pointer before the stream."""
     if name not in _FNS:
         fn = getattr(_build.load("roi_align"), name)
+        window = [ctypes.c_int] * 3 + [ctypes.c_void_p] if "windowed" in name else []
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + window + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
@@ -90,8 +99,9 @@ def _check(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tenso
         if x.device != rois.device:
             raise ValueError(f"{name} is on {x.device}, rois on {rois.device}")
     for i, f in enumerate(features):
-        if f.dtype != torch.float32:
-            raise TypeError(f"features[{i}] must be float32, got {f.dtype}")
+        if f.dtype not in (torch.float32, torch.bfloat16) or f.dtype != features[0].dtype:
+            raise TypeError(f"features must be all float32 or all bfloat16, got {f.dtype} "
+                            f"for features[{i}] and {features[0].dtype} for features[0]")
         if f.dim() != image_dims or f.shape[:-2] != features[0].shape[:-2]:
             raise ValueError(f"features[{i}] must be {'(B, C, H, W)' if image_dims == 4 else '(C, H, W)'}"
                              f" with the B and C of features[0], got {tuple(f.shape)}")
@@ -110,8 +120,11 @@ def _check(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tenso
                          f"sampling_ratio <= {MAX_SAMPLES}, got {pooled}, {sampling_ratio}")
 
 
-def _launch(features, rois, levels, strides, pooled, sampling_ratio):
-    """The kernel on (B, C, H, W) levels, (B, N, 4) rois, (B, N) levels."""
+def _launch(features, rois, levels, strides, pooled, sampling_ratio, window=None,
+            out_of_contract=None):
+    """The forward kernel on (B, C, H, W) levels, (B, N, 4) rois, (B, N)
+    levels: K7's, or K9's with a `Window` (and the count its out-of-contract
+    rois add to, or None)."""
     if rois.device.type != "cuda":
         raise ValueError(f"the RoIAlign kernel runs on cuda, got {rois.device}")
     batch, channels = features[0].shape[:2]
@@ -124,10 +137,16 @@ def _launch(features, rois, levels, strides, pooled, sampling_ratio):
     nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in features]
     rois = rois.contiguous()
     levels = levels.to(torch.int32).contiguous()
-    fn = _kernel()
+    dtype = "bf16" if features[0].dtype == torch.bfloat16 else "f32"
+    if window is None:
+        fn, extra = _kernel(f"roi_align_forward_{dtype}"), []
+    else:
+        fn = _kernel(f"roi_align_windowed_forward_{dtype}")
+        extra = [window.size, window.y_quant, window.x_quant,
+                 None if out_of_contract is None else out_of_contract.data_ptr()]
     with torch.cuda.device(rois.device):
         err = fn(*_level_args(nhwc, strides), rois.data_ptr(), levels.data_ptr(),
-                 out.data_ptr(), batch, n, channels, pooled, sampling_ratio,
+                 out.data_ptr(), batch, n, channels, pooled, sampling_ratio, *extra,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {err}")
@@ -137,18 +156,20 @@ def _launch(features, rois, levels, strides, pooled, sampling_ratio):
 def roi_align_batched_reference(features: List[torch.Tensor], rois: torch.Tensor,
                                 levels: torch.Tensor, strides: Sequence[int],
                                 pooled: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
-    """Plain PyTorch K7: `multilevel_roi_align` image by image, on any device."""
+    """Plain PyTorch K7: `multilevel_roi_align` image by image, on any
+    device; bfloat16 features are read as float32."""
     return torch.stack([
-        multilevel_roi_align([f[b] for f in features], rois[b], levels[b], strides, pooled,
-                             sampling_ratio)
+        multilevel_roi_align([f[b].float() for f in features], rois[b], levels[b], strides,
+                             pooled, sampling_ratio)
         for b in range(rois.shape[0])])
 
 
 def roi_align_batched(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,
                       strides: Sequence[int], pooled: int = 7,
                       sampling_ratio: int = 2) -> torch.Tensor:
-    """K7. features [(B, C, H_l, W_l)], rois (B, N, 4) xyxy image
-    coordinates, levels (B, N) -> (B, N, C, pooled, pooled)."""
+    """K7. features [(B, C, H_l, W_l)] float32 or bfloat16, rois (B, N, 4)
+    xyxy image coordinates, levels (B, N) -> (B, N, C, pooled, pooled)
+    float32."""
     _check(features, rois, levels, strides, pooled, sampling_ratio, image_dims=4)
     if rois.device.type == "cpu":
         return roi_align_batched_reference(features, rois, levels, strides, pooled,
@@ -284,11 +305,64 @@ def roi_align_trainable(features: List[torch.Tensor], rois: torch.Tensor, levels
     """K7 with K8 as its backward: `roi_align_batched`'s function, with a
     gradient for the features. Rois and levels are taken as constants."""
     _check(features, rois, levels, strides, pooled, sampling_ratio, image_dims=4)
+    if features[0].dtype != torch.float32:
+        raise NotImplementedError(
+            "RoIAlign's gradient (K8) takes float32 features; bf16 training is ROADMAP.md, "
+            "Next slices, item 1")
     return RoIAlignFunction.apply(rois.detach(), levels.detach(), tuple(strides), pooled,
                                   sampling_ratio, *features)
 
 
+def roi_align_windowed_reference(features: List[torch.Tensor], rois: torch.Tensor,
+                                 levels: torch.Tensor, strides: Sequence[int], pooled: int = 7,
+                                 sampling_ratio: int = 2, channel_chunk: int = 128,
+                                 win: int = 48) -> torch.Tensor:
+    """Plain PyTorch K9: `multilevel_roi_align_windowed` image by image, on
+    any device (the window follows the features' dtype)."""
+    return torch.stack([
+        window_lib.multilevel_roi_align_windowed([f[b] for f in features], rois[b], levels[b],
+                                                 strides, pooled, sampling_ratio,
+                                                 channel_chunk, win)
+        for b in range(rois.shape[0])])
+
+
+def roi_align_windowed(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,
+                       strides: Sequence[int], pooled: int = 7, sampling_ratio: int = 2,
+                       channel_chunk: int = 128, win: int = 48) -> torch.Tensor:
+    """K9. As `roi_align_batched`, with each roi read from its window of
+    `win` px widened to the features' alignment quanta (`channel_chunk`
+    and the dtype set them, `ops/roi_align_window.py`) and the taps outside
+    it dropped. Counts every roi slot and, on the device, those out of
+    contract (`roi_align_window.contract_stats`) unless
+    OP_TPU_ROI_CONTRACT_STATS=0. No gradient."""
+    _check(features, rois, levels, strides, pooled, sampling_ratio, image_dims=4)
+    counting = window_lib.contract_stats_active()
+    if rois.device.type == "cpu":
+        out = roi_align_windowed_reference(features, rois, levels, strides, pooled,
+                                           sampling_ratio, channel_chunk, win)
+        if counting:
+            shapes = [tuple(f.shape[-2:]) for f in features]
+            mask = window_lib.windowed_out_of_contract_mask(
+                rois, levels, [(h, w, s) for (h, w), s in zip(shapes, strides)],
+                channels=features[0].shape[1], itemsize=features[0].element_size(),
+                pooled=pooled, sampling_ratio=sampling_ratio, channel_chunk=channel_chunk,
+                win=win)
+            window_lib.out_of_contract_counter(rois.device).add_(mask.sum())
+            window_lib.count_dispatch(mask.numel())
+        return out
+    window = window_lib.Window.of([tuple(f.shape[-2:]) for f in features], features[0].shape[1],
+                                  features[0].element_size(), channel_chunk, win)
+    counter = window_lib.out_of_contract_counter(rois.device) if counting else None
+    out = _launch(features, rois, levels, strides, pooled, sampling_ratio, window, counter)
+    if out.numel():  # an empty output launches nothing
+        roi_align_windowed.launches += 1
+        if counting:
+            window_lib.count_dispatch(rois.shape[0] * rois.shape[1])
+    return out
+
+
 roi_align_batched.launches = 0
+roi_align_windowed.launches = 0
 roi_align_single.launches = 0
 roi_align_tiled.launches = 0
 roi_align_batched_backward.launches = 0

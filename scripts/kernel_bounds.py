@@ -6,8 +6,15 @@ written once). Pure arithmetic from shapes; runs anywhere.
     python scripts/kernel_bounds.py
 
 Peaks are NVIDIA's H100 SXM data-sheet figures at its 700 W limit: 67
-TFLOP/s fp32 outside the tensor cores, 3.35 TB/s HBM3. Every kernel is
-counted in fp32 (4-byte elements).
+TFLOP/s fp32 outside the tensor cores, 3.35 TB/s HBM3. Elements are fp32
+(4 bytes), except the RoIAlign forwards' bf16 feature modes, which read
+2-byte features (their sums and output stay fp32).
+
+A RoIAlign forward needs only the pixels its rois reach, which depends on
+the rois. Without rois this table counts the whole pyramid as read, an
+upper figure that flatters the forwards most at 800 px, where the rois touch
+a small part of P2; chip_smoke.py passes `roi_align` the pixels its run's
+rois reach, and its `bound_ms` is the one to quote.
 """
 
 import math
@@ -47,22 +54,30 @@ def lstm_backward(batch=16, frames=300, hidden=512, block_b=64):
     return f"B={batch} T={frames} H={hidden}", flops, bytes_
 
 
-def roi_align(levels, rois, images=1, channels=256, pooled=7, sampling=2):
+def roi_align(levels, rois, images=1, channels=256, pooled=7, sampling=2, itemsize=F32,
+              pixels_read=None):
     """RoIAlign over an FPN pyramid: per output element, sampling^2 samples
     of 4 bilinear taps (a multiply and an add each). The forward reads the
-    pyramid and the rois and writes (N, C, 7, 7); the backward reads dOut
-    and writes dF of the pyramid's size."""
-    feature = images * channels * sum(h * w for h, w in levels)
+    pyramid (`itemsize` bytes an element: 4 for fp32, 2 for bf16) and the
+    rois and writes (N, C, 7, 7) in fp32; the backward reads dOut and writes
+    dF of the pyramid's size. `pixels_read`, the count of (image, level,
+    pixel) taps the rois reach with a nonzero weight, makes the forward read
+    only those pixels' C channels; without it the whole pyramid is counted,
+    which over-counts where the rois touch only part of it (the 800 px P2)."""
+    if pixels_read is None:
+        pixels_read = images * sum(h * w for h, w in levels)
     out = images * rois * channels * pooled * pooled
     flops = out * sampling * sampling * 4 * 2
-    bytes_ = F32 * (feature + out + images * rois * 4)
-    return f"{images} img x {rois} rois, C={channels}", flops, bytes_
+    bytes_ = itemsize * channels * pixels_read + F32 * (out + images * rois * 4)
+    dtype = "bf16" if itemsize == 2 else "f32"
+    return f"{images} img x {rois} rois, C={channels}, {dtype}", flops, bytes_
 
 
 # FPN P2..P5 at the native CATER preprocess recipe (configs/preprocess_config.json:
 # 320x240 padded to 320x256, 300 proposals per image, batches of 30) and at
-# the 800 px recipe (DetectorConfig defaults: 1067x800 padded to 1088x800,
-# 1000 proposals per image).
+# the 800 px recipe (DetectorConfig defaults: 1067x800 padded to 1088x800; its
+# served configuration, scripts/detector_infer800.py bf16_windowed, keeps 300
+# proposals per image in batches of 8).
 NATIVE = [(64, 80), (32, 40), (16, 20), (8, 10)]
 P800 = [(200, 272), (100, 136), (50, 68), (25, 34)]
 
@@ -79,7 +94,13 @@ KERNELS = [
     # recipe, scripts/two_stage_run.py), 300 proposals + 20 ground-truth boxes
     ("K8", "pallas_roi_align.py:858 _pallas_roi_align_tiled_batched_bwd",
      roi_align(NATIVE, 320, images=8)),
-    ("K9", "pallas_roi_align.py:1052 _pallas_roi_align_windowed", roi_align(P800, 1000)),
+    ("K9", "pallas_roi_align.py:1052 _pallas_roi_align_windowed",
+     roi_align(P800, 300, images=8)),
+    ("K9", "pallas_roi_align.py:1052 _pallas_roi_align_windowed",
+     roi_align(P800, 300, images=8, itemsize=2)),
+    # K7's bf16 mode runs for the native geometry in bf16, in chunks of 8
+    ("K7", "pallas_roi_align.py:679 _pallas_roi_align_tiled_batched",
+     roi_align(NATIVE, 300, images=8, itemsize=2)),
 ]
 
 

@@ -294,12 +294,27 @@ def test_detect_video_in_chunks_matches_end_to_end(case):
     _assert_kept_detections_match(chunked, case.jax("outputs"))
 
 
-@pytest.mark.parametrize("options,match", [
-    ({"compute_dtype": "bfloat16"}, "ROADMAP"), ({"roi_backend": "windowed"}, "K9")])
-def test_unported_options_raise(options, match):
-    cfg = det.DetectorConfig(**CONFIGS["tiny"], **options)
-    with pytest.raises(NotImplementedError, match=match):
-        det.CaterDetector(cfg, device="cpu")
+@pytest.mark.parametrize("options", [{"compute_dtype": "bfloat16"}, {"roi_backend": "windowed"},
+                                     {"compute_dtype": "bfloat16", "roi_backend": "windowed"}])
+def test_bf16_and_windowed_options_detect(options):
+    """Both options build a detector and detect; TINY's pyramid lies inside
+    the windowed RoIAlign's window (56 px at C=32), so in float32 it drops no
+    tap and detects exactly what the exact backend does."""
+    from objectpermanence_tpu_torch.ops import roi_align_window
+    case = _case("tiny")
+    detector = det.CaterDetector(det.DetectorConfig(**CONFIGS["tiny"], **options),
+                                 state_dict=case.state, device="cpu")
+    roi_align_window.reset_contract_stats()
+    outputs = detector(case.frames)
+    boxes, labels, scores, valid = outputs
+    assert boxes.dtype == scores.dtype == np.float32 and boxes.shape == (2, 20, 4)
+    assert np.isfinite(boxes[valid]).all() and np.isfinite(scores[valid]).all()
+    windowed = options.get("roi_backend") == "windowed"
+    assert roi_align_window.contract_stats() == {"rois": 200 if windowed else 0,
+                                                 "out_of_contract": 0}
+    if "compute_dtype" not in options:
+        for got, want in zip(outputs, case.detector(case.frames)):
+            np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("backend", ["auto", "pallas", "gather"])

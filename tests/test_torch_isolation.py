@@ -202,3 +202,27 @@ def test_detector_training_cpu_path_runs_without_jax_or_pil(tmp_path):
         print("ok")
     """, tmp_path)
     assert out.strip().endswith("ok")
+
+
+def test_800px_windowed_bf16_path_runs_without_jax(tmp_path):
+    out = _run("""
+        import numpy as np
+        import torch
+        from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+        from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+        from objectpermanence_tpu_torch.ops import roi_align_window
+        config = DetectorConfig(backbone_layers=(1, 1, 1, 1), backbone_width=8, fpn_channels=16,
+                                rpn_pre_nms_top_n=50, rpn_post_nms_top_n=20,
+                                detections_per_img=5, backbone_norm="group",
+                                roi_backend="windowed", compute_dtype="bfloat16")
+        assert config.padded_hw == (800, 1088)
+        boxes, labels, scores, valid = CaterDetector(config, device="cpu")(
+            draw_frames(make_scene(1, num_frames=2)))
+        assert boxes.dtype == np.float32 and boxes.shape == (2, 5, 4)
+        assert roi_align_window.contract_stats()["rois"] == 40
+        assert sys.modules["jax"] is None
+        leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
+        assert not leaked, leaked
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 fused OPNet forward (K1), the LSTM recurrence forward, backward and
 forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
-one-image entry points) and its backward (K8).
+one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
+the bf16 modes of K7 and K9.
 
 Marked `gpu`; without a CUDA card each test skips (decided inside the
 test). On a machine with an H100 and the CUDA toolkit:
@@ -20,6 +21,9 @@ max(1, max |reference|), since it sums B x T terms. RoIAlign holds its
 output at 1e-4 x max(1, max |reference|): the pyramid's values reach 1e3.
 K8 holds each level's gradient at 1e-4 x max(1, max |reference|): it sums
 many rois' shares with atomics, in an order that changes from run to run.
+K9 and the bf16 modes (which read the same bf16 values as their plain
+versions) are held at the same limit, and K9's count of out-of-contract
+rois equals the plain mask's.
 """
 
 from pathlib import Path
@@ -340,3 +344,80 @@ def test_detector_train_step_on_cuda_launches_k7_and_k8_once(monkeypatch):
         before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(v) for v in parts.values())
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in tensors)
+
+
+def _pyramid_800(batch, n, device, dtype, seed=0):
+    """Random levels of the 800 px pyramid (P2-P5 of 200 x 272 to 25 x 34)
+    in `dtype`, and rois of every size class, a few of them 600 x 8 px:
+    out of the windowed kernel's contract."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import assign_levels
+    rng = np.random.RandomState(seed)
+    feats = [torch.from_numpy(rng.standard_normal((batch, 256, h, w)).astype(np.float32)
+                              * 100).to(device=device, dtype=dtype)
+             for h, w in ((200, 272), (100, 136), (50, 68), (25, 34))]
+    xy = rng.uniform(-40, 1088, (batch, n, 2))
+    wh = np.exp(rng.uniform(np.log(0.3), np.log(900), (batch, n, 2)))
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[0, :min(n, 4)] = [[100, 200, 700, 208], [50, 100, 58, 700],
+                           [300, 500, 900, 508], [1000, 10, 1008, 610]][:min(n, 4)]
+    rois = torch.from_numpy(rois).to(device)
+    return feats, rois, assign_levels(rois)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n", [(8, 300), (3, 57), (1, 1)])
+def test_roi_align_windowed_matches_plain(batch, n, dtype):
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_windowed, roi_align_windowed_reference,
+    )
+    device = _card()
+    feats, rois, levels = _pyramid_800(batch, n, device, getattr(torch, dtype), seed=n)
+    window_lib.reset_contract_stats()
+    before = roi_align_windowed.launches
+    got = roi_align_windowed(feats, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_windowed.launches == before + 1
+    stats = window_lib.contract_stats()
+    want = roi_align_windowed_reference(feats, rois, levels, ROI_STRIDES)
+    assert got.dtype == torch.float32 and got.shape == (batch, n, 256, 7, 7)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= _roi_limit(want)
+    mask = window_lib.windowed_out_of_contract_mask(
+        rois, levels, [(f.shape[2], f.shape[3], s) for f, s in zip(feats, ROI_STRIDES)],
+        channels=256, itemsize=feats[0].element_size())
+    assert stats == {"rois": batch * n, "out_of_contract": int(mask.sum())}
+    assert n < 4 or stats["out_of_contract"] >= 4
+    window_lib.reset_contract_stats()
+
+
+@pytest.mark.gpu
+def test_roi_align_batched_bf16_matches_plain():
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched, roi_align_batched_reference,
+    )
+    device = _card()
+    feats, rois, levels = _pyramid_800(8, 300, device, torch.bfloat16, seed=5)
+    got = roi_align_batched(feats, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    want = roi_align_batched_reference(feats, rois, levels, ROI_STRIDES)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= _roi_limit(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_800px_detector_on_cuda_goes_through_k9(dtype):
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    _card()
+    detector = CaterDetector(DetectorConfig(compute_dtype=dtype))   # 800 px, "auto"
+    frames = draw_frames(make_scene(0, num_frames=8))
+    before = (rk.roi_align_windowed.launches, rk.roi_align_batched.launches)
+    boxes, labels, scores, valid = detector(frames)
+    assert (rk.roi_align_windowed.launches, rk.roi_align_batched.launches) == (
+        before[0] + 1, before[1])
+    assert boxes.shape == (8, 100, 4) and np.isfinite(boxes[valid]).all()
