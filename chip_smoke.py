@@ -2,24 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1;
-`lstm_scan`: K2, K3, K4; `roi_align`: K7, with K5/K6 as its one-image
-entries, K8, its backward, and K9, the windowed RoIAlign; K7 and K9 in
-float32 and bfloat16), holds each against its plain PyTorch version at the
-main paths' full-width shapes, drives the five main paths (OPNet inference
-over ingested detections; OPNet training on a fixture dataset followed by
-inference from its best checkpoint; `preprocess`, the full-width Faster
-R-CNN over fixture videos, followed by OPNet inference over the pickles it
-wrote, all three through the port's CLI; Faster R-CNN training through
-`train_detector` at the dettrain recipe's full width, resumed, then
-detection from its best checkpoint; `preprocess` at the 800 px bf16 recipe,
-then chunks of its fp32 twin, of the default `DetectorConfig()` and of the
-native geometry in bf16), reading each kernel's launch count around each
-path, runs one detector train step and one 800 px video again with the
-plain RoIAlign swapped in, profiles one full-width train step of OPNet and
-of the detector and detector chunks at both geometries, times every kernel
-beside its bound, its plain version and a library yardstick where there is
-one, and prints as its last line
+Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1, in
+float32 and with bf16 operands; `lstm_scan`: K2, K3, K4; `roi_align`: K7,
+with K5/K6 as its one-image entries, K8, its backward (bf16 dF too), and K9,
+the windowed RoIAlign; K7 and K9 in float32 and bfloat16), holds each against
+its plain PyTorch version at the main paths' full-width shapes, drives the
+main paths (OPNet inference over ingested detections, in float32 through the
+CLI and with bf16 operands through `make_predict_step`; OPNet training on a
+fixture dataset followed by inference from its best checkpoint; `preprocess`,
+the full-width Faster R-CNN over fixture videos, followed by OPNet inference
+over the pickles it wrote, all three through the port's CLI; Faster R-CNN
+training through `train_detector` at the dettrain recipe's full width,
+resumed, then detection from its best checkpoint; the same at the 800 px
+`train800` recipe in bf16, then steps of its fp32 twin and of bf16 with
+"auto"; `preprocess` at the 800 px bf16 recipe, then chunks of its fp32 twin,
+of the default `DetectorConfig()` and of the native geometry in bf16),
+reading each kernel's launch count around each path, runs one detector train
+step at each geometry and one 800 px video again with the plain RoIAlign
+swapped in, profiles one full-width train step of OPNet and of the detector
+(native fp32, 800 px bf16 and fp32) and detector chunks at both geometries,
+times every kernel beside its bound, its plain version and a library
+yardstick where there is one, and prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure exits non-zero before that line. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -54,8 +57,6 @@ ATOL = 1e-4          # kernel vs plain, float32 with sums in another order
 # their largest reference value, at least 1e-4 absolute
 GRAD_RTOL = 1e-4
 PX_MAX, PX_SHARE = 1, 1e-3  # integer boxes: <= 1 px apart on <= 0.1% of coordinates
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # the detector at the shipped preprocess config (configs/preprocess_config.json)
 DETECTOR_VIDEOS, CHUNK = 3, 30
 DETECTOR_SEED = 21   # fixture scenes of the preprocess videos
@@ -89,6 +90,19 @@ EDGE_ROIS_800 = [[10.2, 20.7, 10.6, 21.1], [-75.0, 500.0, 60.0, 650.0],
                  [50.0, 100.0, 58.0, 700.0], [1000.0, 10.0, 1008.0, 610.0],
                  [480.0, 790.0, 1080.0, 798.0]]
 OUT_OF_CONTRACT_MIN = 4
+# the 800 px training recipe, the JAX package's `train800` stage
+# (scripts/detector_800px_run.py): `train_detector` at DET800's geometry and widths
+# (GroupNorm ResNet-50 FPN 256, 800 x 1088 padded, RPN 500/300, windowed), batch 4,
+# SGD lr 5e-3, bf16 (`--compute-dtype bfloat16`) with its fp32 twin; cut from 12
+# epochs of the rendered set to 2 + 1 epochs of the 48 + 16 fixture frames, seeded
+# weights
+TRAIN800_BATCH, TRAIN800_EPOCHS, TRAIN800_TWIN_STEPS = 4, 2, 3
+# the swap step in bf16: K8's atomics move the float32 sums' last bits, which can
+# move a bf16 rounding of dF by one ulp and, through the bf16 backbone's backward,
+# its gradients: each within 1e-2 x max(1, max |plain's|); the first SGD step moves
+# a parameter by lr x its gradient, so each parameter after the update within lr
+# times that limit, plus two float32 ulps of the parameter
+SWAP_BF16_RTOL = 1e-2
 
 
 def log(phase, **fields):
@@ -193,25 +207,94 @@ def phase_build():
                 units_per_block=units, blocks=blocks, smem_bytes=smem)
 
 
-def compare_kernel(batch, weights, device):
+def compare_kernel(batch, weights, device, compute_dtype=torch.float32):
+    """K1 (or its bf16 operand mode) against its plain version on the same
+    operands (float32 sums in another order): y and the logits within 1e-4,
+    pixel boxes <= 1 px apart on <= 0.1%. For the bf16 mode, beside it and
+    not gated, how far bf16 moves the pixel boxes from float32 K1."""
     from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
     from objectpermanence_tpu_torch.ops.opnet_fused import (
         opnet_forward_reference, opnet_fused_forward,
     )
     boxes = served_boxes(batch, device)
-    y, logits = opnet_fused_forward(boxes, *weights)
+    y, logits = opnet_fused_forward(boxes, *weights, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
-    want_y, want_logits = opnet_forward_reference(boxes, *weights)
+    want_y, want_logits = opnet_forward_reference(boxes, *weights, compute_dtype=compute_dtype)
+    assert y.dtype == logits.dtype == torch.float32
     assert y.shape == (batch, FRAMES, 4) and logits.shape == (batch, 15, FRAMES)
     assert torch.isfinite(y).all() and torch.isfinite(logits).all(), "non-finite output"
     err_y = (y - want_y).abs().max().item()
     err_logits = (logits - want_logits).abs().max().item()
     px_max, px_share = pixel_diff(denormalize_boxes(y), denormalize_boxes(want_y))
-    log("kernel_vs_plain", batch=batch, frames=FRAMES, max_abs_err_y=err_y,
-        max_abs_err_logits=err_logits, px_max_diff=px_max, px_diff_share=px_share)
-    assert err_y <= ATOL and err_logits <= ATOL, f"kernel disagrees with plain at B={batch}"
-    assert px_max <= PX_MAX and px_share <= PX_SHARE, f"pixel boxes disagree at B={batch}"
+    fields = {}
+    if compute_dtype != torch.float32:
+        y32, _ = opnet_fused_forward(boxes, *weights)
+        moved = (denormalize_boxes(y).to(torch.int64)
+                 - denormalize_boxes(y32).to(torch.int64)).abs()
+        fields = {"fp32_boxes_moved": int((moved.amax(-1) > 0).sum()),
+                  "fp32_boxes": batch * FRAMES, "fp32_px_max_diff": int(moved.max()),
+                  "fp32_px_mean_diff": float(moved.float().mean()),
+                  "fp32_max_abs_diff_y": (y - y32).abs().max().item()}
+    phase = "kernel_vs_plain" if compute_dtype == torch.float32 else "opnet_bf16_vs_plain"
+    log(phase, batch=batch, frames=FRAMES, max_abs_err_y=err_y, max_abs_err_logits=err_logits,
+        px_max_diff=px_max, px_diff_share=px_share, **fields)
+    assert err_y <= ATOL and err_logits <= ATOL, f"{phase}: kernel disagrees at B={batch}"
+    assert px_max <= PX_MAX and px_share <= PX_SHARE, f"{phase}: pixel boxes disagree at B={batch}"
     return max(err_y, err_logits)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude `x` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def phase_opnet_bf16_vs_plain(weights, device):
+    bf16 = torch.bfloat16
+    return max(compare_kernel(b, weights, device, bf16) for b in (BATCH, RAGGED_BATCH))
+
+
+def phase_main_path_bf16(weights, device):
+    """`make_predict_step(compute_dtype=torch.bfloat16)` over the main path's
+    64 ingested fixture videos at the shipped inference batch size, with the
+    launch counts read around it: K1 (its bf16 mode) once per batch, nothing
+    else; the pixel boxes against the plain bf16 loop's."""
+    from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
+    from objectpermanence_tpu_torch.data.ingest import batches, ingest_directory
+    from objectpermanence_tpu_torch.infer.reasoning import make_predict_step
+    from objectpermanence_tpu_torch.models.registry import init_model
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+    from objectpermanence_tpu_torch.ops.opnet_fused import opnet_forward_reference
+    work = WORK_DIR / "main_path_bf16"
+    shutil.rmtree(work, ignore_errors=True)
+    pred_dir, labels_dir, _ = write_fixture_dataset(work / "data", num_videos=MAIN_PATH_VIDEOS,
+                                                    seed=5)
+    batch_size = json.loads((REPO / "configs" / "inference_config.json").read_text())["batch_size"]
+    config = json.loads((REPO / "configs" / "opnet_model_config.json").read_text())
+    spec, model = init_model("opnet", config, checkpoint_path=str(FLAGSHIP_NPZ), device=device)
+    dataset = ingest_directory(pred_dir, labels_dir, spec.feature_width)
+    step = make_predict_step(spec, device=device, compute_dtype=torch.bfloat16)
+    step32 = make_predict_step(spec, device=device)
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    predicted = torch.cat([step(model, b["boxes"]) for b in batches(dataset, batch_size)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read()
+    chunks = -(-len(dataset.names) // batch_size)
+    assert counts["K1"] == chunks and sum(counts.values()) == chunks, counts
+    assert predicted.shape == (MAIN_PATH_VIDEOS, FRAMES, 4) and predicted.dtype == torch.int32
+    boxes = torch.from_numpy(dataset.boxes).to(device)
+    want_y, _ = opnet_forward_reference(boxes, *weights, compute_dtype=torch.bfloat16)
+    px_max, px_share = pixel_diff(predicted, denormalize_boxes(want_y))
+    fp32 = torch.cat([step32(model, b["boxes"]) for b in batches(dataset, batch_size)])
+    moved = (predicted.to(torch.int64) - fp32.to(torch.int64)).abs()
+    log("main_path_bf16", videos=MAIN_PATH_VIDEOS, frames=FRAMES, batch_size=batch_size,
+        launches=json.dumps(counts), seconds=f"{seconds:.3f}", px_max_diff_vs_plain=px_max,
+        px_diff_share=px_share, fp32_boxes_moved=int((moved.amax(-1) > 0).sum()),
+        fp32_px_max_diff=int(moved.max()))
+    assert px_max <= PX_MAX and px_share <= PX_SHARE, "bf16 main path disagrees with plain"
+    return counts["K1"]
 
 
 def phase_main_path(weights, device):
@@ -452,9 +535,10 @@ def phase_train_path(device):
 
 class CudnnOPNet(torch.nn.Module):
     """Yardstick only, never used by the port: the same function from
-    library calls, two cuDNN LSTMs with the softmax selection between."""
+    library calls, two cuDNN LSTMs with the softmax selection between, in
+    float32 or (`dtype=torch.bfloat16`) on bf16 weights and boxes."""
 
-    def __init__(self, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
+    def __init__(self, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head, dtype=torch.float32):
         super().__init__()
         self.lstm1 = torch.nn.LSTM(w1_ih.shape[0], w1_hh.shape[0], bias=False, batch_first=True)
         self.lstm2 = torch.nn.LSTM(w2_ih.shape[0], w2_hh.shape[0], bias=False, batch_first=True)
@@ -463,9 +547,11 @@ class CudnnOPNet(torch.nn.Module):
             self.lstm1.weight_hh_l0.copy_(w1_hh.t())
             self.lstm2.weight_ih_l0.copy_(w2_ih.t())
             self.lstm2.weight_hh_l0.copy_(w2_hh.t())
-        self.w_att, self.w_head = w_att, w_head
+        self.to(dtype)
+        self.w_att, self.w_head, self.dtype = w_att.to(dtype), w_head.to(dtype), dtype
 
     def forward(self, boxes):
+        boxes = boxes.to(self.dtype)
         b, t, o, f = boxes.shape
         h1, _ = self.lstm1(boxes.reshape(b, t, o * f))
         logits = h1 @ self.w_att
@@ -474,42 +560,62 @@ class CudnnOPNet(torch.nn.Module):
         return h2 @ self.w_head, logits.transpose(1, 2)
 
 
-def phase_times(weights, device, launches, max_abs_err):
+def phase_times(weights, device, launches, max_abs_err, compute_dtype=torch.float32):
+    """K1 (or its bf16 operand mode) at B=512, T=300 beside its bound, its
+    plain version and cuDNN's LSTMs composing the same function in the same
+    dtype (`CudnnOPNet`), in turns: plain, kernel, library, kernel, plain;
+    the bf16 mode times float32 K1 in the same turns, after each kernel
+    turn. The bound (scripts/kernel_bounds.py) counts the operands' bytes;
+    the products take float32 carries, which the bf16 tensor cores cannot
+    take without rounding them, so the bf16 mode stays at the fp32 peak."""
     from objectpermanence_tpu_torch.ops.opnet_fused import (
         opnet_forward_reference, opnet_fused_forward,
     )
+    sys.path.insert(0, str(REPO / "scripts"))
+    import kernel_bounds as kb
+    bf16 = compute_dtype == torch.bfloat16
     boxes = served_boxes(BATCH, device)
-    library = CudnnOPNet(*weights).to(device)
+    library = CudnnOPNet(*weights, dtype=compute_dtype).to(device)
+
+    def kernel():
+        return opnet_fused_forward(boxes, *weights, compute_dtype=compute_dtype)
+
+    def plain():
+        return opnet_forward_reference(boxes, *weights, compute_dtype=compute_dtype)
+
+    def f32():
+        return opnet_fused_forward(boxes, *weights)
+
     with torch.inference_mode():
         lib_y, _ = library(boxes)
-        kernel_y, _ = opnet_fused_forward(boxes, *weights)
-        library_err = (lib_y - kernel_y).abs().max().item()
-        # in turns: plain, kernel, library, kernel, plain
-        plain_a = time_ms(lambda: opnet_forward_reference(boxes, *weights), iters=3, warmup=1)
-        kernel_a = time_ms(lambda: opnet_fused_forward(boxes, *weights), iters=20)
+        library_err = (lib_y.float() - kernel()[0]).abs().max().item()
+        plain_a = time_ms(plain, iters=3, warmup=1)
+        kernel_a = time_ms(kernel, iters=20)
+        f32_runs = [time_ms(f32, iters=20)] if bf16 else []
         library_ms = time_ms(lambda: library(boxes), iters=10)
-        kernel_b = time_ms(lambda: opnet_fused_forward(boxes, *weights), iters=20)
-        plain_b = time_ms(lambda: opnet_forward_reference(boxes, *weights), iters=3, warmup=1)
+        kernel_b = time_ms(kernel, iters=20)
+        f32_runs += [time_ms(f32, iters=20)] if bf16 else []
+        plain_b = time_ms(plain, iters=3, warmup=1)
     kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
 
     batch, frames, objects, feat = boxes.shape
-    w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head = weights
-    macs_per_frame = sum(w.numel() for w in weights)  # each weight is used once per frame
-    flops = 2 * macs_per_frame * batch * frames
-    bytes_moved = 4 * (boxes.numel() + macs_per_frame + batch * frames * (4 + objects))
-    bound_ms = max(flops / PEAK_FP32_FLOPS, bytes_moved / PEAK_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / PEAK_FP32_FLOPS >= bytes_moved / PEAK_BYTES_PER_S \
-        else "bytes"
-    log("times", batch=batch, frames=frames, kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b],
-        plain_ms=plain_ms, plain_ms_runs=[plain_a, plain_b], library_ms=library_ms,
+    _, flops, bytes_ = kb.opnet_fused(batch, frames, objects, feat, weights[1].shape[0],
+                                      weights[4].shape[0], itemsize=2 if bf16 else 4)
+    t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    fields = {"f32_kernel_ms": sum(f32_runs) / 2, "f32_kernel_ms_runs": f32_runs} if bf16 else {}
+    log("times", kernel="K1_bf16" if bf16 else "K1", batch=batch, frames=frames,
+        kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b], **fields, plain_ms=plain_ms,
+        plain_ms_runs=[plain_a, plain_b], library_ms=library_ms,
         library_max_abs_err_y=library_err, frames_per_s=batch * frames / (kernel_ms / 1e3),
-        gflop=flops / 1e9, mbytes=bytes_moved / 1e6, bound_ms=bound_ms, bound_by=bound_by)
-    return {"name": "opnet_fused_forward", "route": "cuda",
-            "source": "objectpermanence_tpu_torch/csrc/opnet_fused.cu",
+        gflop=flops / 1e9, mbytes=bytes_ / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+        bound_peak="fp32 67 TFLOP/s")
+    return {"name": "opnet_fused_forward (bf16)" if bf16 else "opnet_fused_forward",
+            "route": "cuda", "source": "objectpermanence_tpu_torch/csrc/opnet_fused.cu",
             "replaces": "objectpermanence_tpu/ops/pallas_scan.py:485",
             "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def lstm_bounds(batch, frames, hidden):
@@ -1231,9 +1337,9 @@ def dettrain_detector(device):
     return CaterDetector(DetectorConfig(**DETTRAIN), device=device)
 
 
-def train_batch(data, device):
-    """The first shuffled batch of 8 frames and its ground truth, on the card."""
-    batch = next(data.batches(DET_BATCH, shuffle=True, seed=0))
+def train_batch(data, device, size=DET_BATCH):
+    """The first shuffled batch of `size` frames and its ground truth, on the card."""
+    batch = next(data.batches(size, shuffle=True, seed=0))
     return (torch.from_numpy(batch["images"]).to(device),
             torch.from_numpy(batch["gt_boxes"]).to(device),
             torch.from_numpy(batch["gt_labels"]).to(device).long(),
@@ -1292,6 +1398,239 @@ def phase_roi_align_grad_vs_plain(det, train_set):
         assert all(e <= lim for e, lim in zip(errs, limits)), f"K8 disagrees at B={batch}, N={n}"
         worst = max(worst, max(errs))
     return worst, (dout, rois, levels, shapes, [p.detach() for p in pyramid[:4]])
+
+
+def train800_recipe(compute_dtype="bfloat16", **overrides):
+    return {**DET800, "compute_dtype": compute_dtype, **overrides}
+
+
+def phase_roi_align_bf16_grad_vs_plain(device, train_set):
+    """K8 with bf16 dF at the 800 px training shape (the train800 bf16
+    detector's pyramid of 4 fixture frames, its 300 proposals + the 20
+    ground-truth rows, EDGE_ROIS_800 over frame 0's first ones, a seeded
+    normal dOut; and ragged, B=3, N=57), against the plain backward. Per
+    level, K8's float32 accumulators (its float32 mode on the same input)
+    within 1e-4 x max(1, max |ref|); the bf16 dF of both trainable Functions
+    (`roi_align_trainable`: K7 + K8; `roi_align_windowed_trainable`: K9 +
+    K8) within one bf16 ulp of max |ref| of the plain bf16 dF: the atomics'
+    order moves the float32 sums' last bits, which can move a rounding."""
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        forward_features, preprocess_images, propose,
+    )
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES, assign_levels
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched_backward, roi_align_batched_backward_reference, roi_align_trainable,
+        roi_align_windowed_trainable,
+    )
+    cfg, model, anchors = detector_training_setup(device, recipe=train800_recipe())
+    images, gt_boxes, _, _ = train_batch(train_set, device, TRAIN800_BATCH)
+    with torch.no_grad():
+        pyramid = forward_features(model, preprocess_images(images, cfg))
+        proposals, _ = propose(model, pyramid, cfg, anchors)
+    rois = torch.cat([proposals, gt_boxes * cfg.scale], dim=1)
+    rois[0, :len(EDGE_ROIS_800)] = torch.tensor(EDGE_ROIS_800, device=rois.device)
+    levels = assign_levels(rois)
+    feats = [p.detach() for p in pyramid[:4]]
+    assert all(f.dtype == torch.bfloat16 for f in feats), [f.dtype for f in feats]
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    gen = torch.Generator().manual_seed(8)
+    dout = torch.randn((TRAIN800_BATCH, rois.shape[1], feats[0].shape[1], 7, 7),
+                       generator=gen).to(device)
+    worst = 0.0
+    for batch, n in ((TRAIN800_BATCH, rois.shape[1]), (3, 57)):
+        args = (dout[:batch, :n].contiguous(), rois[:batch, :n].contiguous(),
+                levels[:batch, :n].contiguous(), shapes, ROI_STRIDES)
+        accumulators = roi_align_batched_backward(*args)
+        torch.cuda.synchronize()
+        want = roi_align_batched_backward_reference(*args)
+        errs, limits = zip(*[roi_err(g, w) for g, w in zip(accumulators, want)])
+        ulps = [bf16_ulp(max(w.abs().max().item(), 1e-30)) for w in want]
+        fields = {}
+        for label, fn in (("exact", roi_align_trainable), ("windowed", roi_align_windowed_trainable)):
+            leaves = [f[:batch].detach().clone().requires_grad_(True) for f in feats]
+            fn(leaves, args[1], args[2], ROI_STRIDES).backward(args[0])
+            torch.cuda.synchronize()
+            assert all(leaf.grad.dtype == torch.bfloat16 for leaf in leaves)
+            assert all(torch.isfinite(leaf.grad).all() for leaf in leaves), "non-finite K8 bf16 dF"
+            bf16_errs = [(leaf.grad.float() - w.to(torch.bfloat16).float()).abs().max().item()
+                         for leaf, w in zip(leaves, want)]
+            fields[f"{label}_bf16_max_abs_err_per_level"] = bf16_errs
+            assert all(e <= u for e, u in zip(bf16_errs, ulps)), (label, bf16_errs, ulps)
+            worst = max(worst, max(bf16_errs))
+        log("roi_align_bf16_grad_vs_plain", kernel="K8_bf16", batch=batch, rois=n,
+            shapes=shapes, accumulators_max_abs_err_per_level=list(errs),
+            accumulators_limit_per_level=list(limits), bf16_limit_per_level=ulps, **fields,
+            levels_used=sorted(set(args[2].flatten().tolist())))
+        assert all(e <= lim for e, lim in zip(errs, limits)), f"K8 disagrees at B={batch}, N={n}"
+    window_lib.reset_contract_stats()
+    return worst, (dout, rois, levels, shapes)
+
+
+def phase_detector_train_800_path(train_set, dev_set):
+    """`train_detector` at the train800 recipe in bf16 (full width, windowed,
+    batch 4): 2 epochs with evaluation, then `resume=True` to epoch 3, each
+    with the launch counts read around it (K9 and K8 once per train step, K9
+    once per evaluation batch, nothing else); float32 masters in the
+    checkpoints; then `evaluate_detector` over the dev frames from the best
+    checkpoint. The out-of-contract rates of training (its evaluations
+    included, as JAX's report counts them) and of that evaluation. Then a
+    few steps of the fp32 twin (K9 + K8) and of bf16 with "auto" (the exact
+    pair, K7 + K8)."""
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    from objectpermanence_tpu_torch.models.detector.training import (
+        make_detector_train_step, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    from objectpermanence_tpu_torch.train.detector_loop import (
+        evaluate_detector, train_detector, warmup_schedule,
+    )
+    from objectpermanence_tpu_torch.utils.checkpoint import load_params
+    work = WORK_DIR / "detector_train_800_path"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = DetectorConfig(**train800_recipe())
+    common = dict(batch_size=TRAIN800_BATCH, learning_rate=DET_LR, checkpoint_dir=str(work),
+                  print_step=4, seed=0, device="cuda")
+    steps = -(-len(train_set) // TRAIN800_BATCH)
+    eval_chunks = -(-len(dev_set) // 8)  # evaluate_detector's batches of 8
+    others = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+    window_lib.reset_contract_stats()
+    read = reset_launches()
+    t0 = time.perf_counter()
+    first = train_detector(train_set, dev_set, cfg, num_epochs=TRAIN800_EPOCHS, **common)
+    torch.cuda.synchronize()
+    first_seconds = time.perf_counter() - t0
+    first_launches = read()
+    assert [h["epoch"] for h in first["history"]] == list(range(1, TRAIN800_EPOCHS + 1))
+    assert first_launches["K8"] == TRAIN800_EPOCHS * steps, first_launches
+    assert first_launches["K9"] == TRAIN800_EPOCHS * (steps + eval_chunks), first_launches
+    assert all(first_launches[k] == 0 for k in others), first_launches
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    resumed = train_detector(train_set, dev_set, cfg, num_epochs=TRAIN800_EPOCHS + 1,
+                             resume=True, **common)
+    torch.cuda.synchronize()
+    resume_seconds = time.perf_counter() - t0
+    resume_launches = read()
+    train_contract = window_lib.contract_stats()
+    assert [h["epoch"] for h in resumed["history"]] == [TRAIN800_EPOCHS + 1]
+    assert resume_launches["K8"] == steps and resume_launches["K9"] == steps + eval_chunks, \
+        resume_launches
+    assert all(resume_launches[k] == 0 for k in others), resume_launches
+    history = first["history"] + resumed["history"]
+    losses = [loss for h in history for loss in h["train_losses"]]
+    assert len(losses) == (TRAIN800_EPOCHS + 1) * steps and np.all(np.isfinite(losses)), losses
+
+    best = max(work.glob("best_*.npz"), key=lambda p: float(p.stem.split("_", 1)[1]))
+    for path in (best, work / "final.npz"):
+        assert all(v.dtype == torch.float32 for v in load_params(path).values()), path
+    window_lib.reset_contract_stats()
+    read = reset_launches()
+    metrics = evaluate_detector(CaterDetector.load(str(best), cfg, device="cuda"), dev_set)
+    torch.cuda.synchronize()
+    eval_launches = read()
+    eval_contract = window_lib.contract_stats()
+    window_lib.reset_contract_stats()
+    assert eval_launches["K9"] == eval_chunks and sum(eval_launches.values()) == eval_chunks, \
+        eval_launches
+
+    def rate(c):
+        return c["out_of_contract"] / c["rois"] if c["rois"] else None
+
+    log("detector_train_800_path", recipe="train800_bf16", train_frames=len(train_set),
+        dev_frames=len(dev_set), batch=TRAIN800_BATCH, epochs=f"{TRAIN800_EPOCHS}+1",
+        steps_per_epoch=steps, seconds=f"{first_seconds:.3f}+{resume_seconds:.3f}",
+        launches=json.dumps(first_launches), resume_launches=json.dumps(resume_launches),
+        loss_per_step=json.dumps([round(x, 5) for x in losses]),
+        map_per_epoch=json.dumps([h["mAP"] for h in history]), best=best.name,
+        best_eval=json.dumps(metrics), eval_launches=json.dumps(eval_launches),
+        train_contract=json.dumps(train_contract), train_out_of_contract_rate=rate(train_contract),
+        eval_contract=json.dumps(eval_contract), eval_out_of_contract_rate=rate(eval_contract))
+
+    inputs = train_batch(train_set, "cuda", TRAIN800_BATCH)
+    for label, recipe, forward in (("fp32_windowed", train800_recipe("float32"), "K9"),
+                                   ("bf16_auto", train800_recipe(roi_backend="auto"), "K7")):
+        twin_cfg, model, anchors = detector_training_setup("cuda", recipe=recipe)
+        optimizer = torch.optim.SGD([t for _, t in trainable_tensors(model)], lr=DET_LR,
+                                    momentum=0.9, weight_decay=5e-4, dampening=0.0)
+        step = make_detector_train_step(twin_cfg, anchors, optimizer, warmup_schedule(DET_LR, 5))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        read = reset_launches()
+        twin_losses = [float(step(model, *inputs, generator=gen)["loss"])
+                       for _ in range(TRAIN800_TWIN_STEPS)]
+        counts = read()
+        log("detector_train_800_twin", recipe=label, steps=TRAIN800_TWIN_STEPS,
+            losses=json.dumps(twin_losses), launches=json.dumps(counts))
+        assert np.all(np.isfinite(twin_losses)), (label, twin_losses)
+        assert counts[forward] == counts["K8"] == TRAIN800_TWIN_STEPS, (label, counts)
+        assert sum(counts.values()) == 2 * TRAIN800_TWIN_STEPS, (label, counts)
+        del model, optimizer, step
+    return {k: first_launches[k] + resume_launches[k] for k in first_launches}
+
+
+def phase_detector_train_800_step_swap(device, train_set):
+    """One 800 px bf16 train step at B=4 (train800, windowed, a constant lr
+    of 5e-3) twice from the same weights and draws: through K9/K8, and with
+    the plain windowed forward and plain backward in their place. Loss parts
+    within 1e-5 relative; each clipped gradient within 1e-2 x max(1, max
+    |plain's|) and each parameter after the update within lr times that,
+    plus two float32 ulps of the parameter (SWAP_BF16_RTOL)."""
+    from objectpermanence_tpu_torch.models.detector.training import (
+        Draws, make_detector_train_step, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    inputs = train_batch(train_set, device, TRAIN800_BATCH)
+    runs = {}
+    for swap in (False, True):
+        cfg, model, anchors = detector_training_setup(device, recipe=train800_recipe())
+        named = trainable_tensors(model)
+        optimizer = torch.optim.SGD([t for _, t in named], lr=DET_LR, momentum=0.9,
+                                    weight_decay=5e-4, dampening=0.0)
+        step = make_detector_train_step(cfg, anchors, optimizer, lambda count: DET_LR)
+        draws = Draws.sample(TRAIN800_BATCH, sum(a.shape[0] for a in anchors),
+                             cfg.rpn_post_nms_top_n + inputs[1].shape[1], device,
+                             torch.Generator(device=device).manual_seed(5))
+        read = reset_launches()
+        kernels = rk.roi_align_windowed, rk.roi_align_batched_backward
+        if swap:  # the windowed Function's forward and backward, plain
+            rk.roi_align_windowed = rk.roi_align_windowed_reference
+            rk.roi_align_batched_backward = rk.roi_align_batched_backward_reference
+        try:
+            parts = step(model, *inputs, draws=draws)
+        finally:
+            rk.roi_align_windowed, rk.roi_align_batched_backward = kernels
+        torch.cuda.synchronize()
+        runs[swap] = ({k: float(v) for k, v in parts.items()}, {n: t.grad.clone() for n, t in named},
+                      {n: t.detach().clone() for n, t in named}, read())
+        del model, optimizer, step
+    window_lib.reset_contract_stats()
+    (parts, grads, params, launches), (plain_parts, plain_grads, plain_params,
+                                       plain_launches) = runs[False], runs[True]
+    assert launches["K9"] == 1 and launches["K8"] == 1 and sum(launches.values()) == 2, launches
+    assert sum(plain_launches.values()) == 0, plain_launches
+    loss_rel = {k: abs(parts[k] - plain_parts[k]) / abs(plain_parts[k]) for k in parts}
+    grad_ratio = {n: (grads[n] - g).abs().max().item()
+                  / (SWAP_BF16_RTOL * max(1.0, g.abs().max().item()))
+                  for n, g in plain_grads.items()}
+
+    def param_limit(n):
+        largest = plain_params[n].abs().max().item()
+        ulps = 2 * 2.0 ** (np.floor(np.log2(largest)) - 23) if largest > 0 else 0.0
+        return DET_LR * SWAP_BF16_RTOL * max(1.0, plain_grads[n].abs().max().item()) + ulps
+
+    param_ratio = {n: (params[n] - p).abs().max().item() / max(param_limit(n), 1e-30)
+                   for n, p in plain_params.items()}
+    log("detector_train_800_step_swap", batch=TRAIN800_BATCH, loss_parts=json.dumps(parts),
+        loss_rel_diff=json.dumps(loss_rel), tensors=len(grad_ratio),
+        worst_grad_err_over_limit=json.dumps(sorted(grad_ratio.items(), key=lambda kv: -kv[1])[:4]),
+        worst_param_err_over_limit=json.dumps(
+            sorted(param_ratio.items(), key=lambda kv: -kv[1])[:4]))
+    assert all(v <= LOSS_RTOL for v in loss_rel.values()), f"loss parts differ: {loss_rel}"
+    assert all(r <= 1.0 for r in grad_ratio.values()), "gradients differ"
+    assert all(r <= 1.0 for r in param_ratio.values()), "parameters differ"
 
 
 def phase_detector_train_path(train_set, dev_set):
@@ -1363,12 +1702,12 @@ def phase_detector_train_path(train_set, dev_set):
     return {k: first_launches[k] + resume_launches[k] for k in first_launches}
 
 
-def detector_training_setup(device, seed=0):
+def detector_training_setup(device, seed=0, recipe=DETTRAIN):
     from objectpermanence_tpu_torch.models.detector import anchors as anchor_lib
     from objectpermanence_tpu_torch.models.detector.detector import (
         Detector, DetectorConfig, init_detector,
     )
-    cfg = DetectorConfig(**DETTRAIN)
+    cfg = DetectorConfig(**recipe)
     model = init_detector(Detector(cfg), seed).to(device)
     anchors = [torch.from_numpy(a).to(device) for a in anchor_lib.pyramid_anchors(
         cfg.feature_shapes(), cfg.strides, cfg.anchor_sizes)]
@@ -1423,22 +1762,26 @@ STEP_STAGES = ("backbone_fpn", "rpn_proposals", "roi_align", "heads_losses", "ba
                "optimizer")
 
 
-def phase_detector_train_step_profile(device, train_set, k8_copy_ms, steps=5, profile_steps=3):
-    """Where a full-width detector train step at B=8 spends its time: each
+def phase_detector_train_step_profile(device, train_set, k8_copy_ms, recipe=DETTRAIN,
+                                      batch=DET_BATCH, label="native_fp32", steps=5,
+                                      profile_steps=3):
+    """Where a full-width detector train step spends its time (`recipe` at
+    `batch` frames; the dettrain recipe at B=8 by default): each
     stage by CUDA events recorded as the step issues it (the RPN's NMS
     rounds and the sampler wait on the host), the whole step, then a
     torch.profiler window with the device's busy share and K8's device time.
     The backward's split: K8 from the profiler, its NHWC-to-NCHW copy from
-    the times phase (`k8_copy_ms`), the rest of the backward."""
+    the times phase (`k8_copy_ms`), the rest of the backward. Returns the
+    step's mean ms."""
     from objectpermanence_tpu_torch.models.detector.training import (
         make_detector_train_step, trainable_tensors,
     )
     from objectpermanence_tpu_torch.train.detector_loop import warmup_schedule
-    cfg, model, anchors = detector_training_setup(device)
+    cfg, model, anchors = detector_training_setup(device, recipe=recipe)
     optimizer = torch.optim.SGD([t for _, t in trainable_tensors(model)], lr=DET_LR,
                                 momentum=0.9, weight_decay=5e-4, dampening=0.0)
     step = make_detector_train_step(cfg, anchors, optimizer, warmup_schedule(DET_LR, 5))
-    inputs = train_batch(train_set, device)
+    inputs = train_batch(train_set, device, batch)
     gen = torch.Generator(device=device).manual_seed(0)
 
     def staged():
@@ -1480,14 +1823,15 @@ def phase_detector_train_step_profile(device, train_set, k8_copy_ms, steps=5, pr
     assert k8_ms > 0, "the profiler saw no K8 in the train step"
     per_step = {name[:60]: ms / profile_steps
                 for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
-    log("detector_train_step_profile", batch=DET_BATCH, step_ms=step_ms,
+    log("detector_train_step_profile", recipe=label, batch=batch, step_ms=step_ms,
         stage_ms=json.dumps(stage_ms), stages_sum_ms=sum(stage_ms.values()),
         backward_split_ms=json.dumps({"k8": k8_ms, "k8_nchw_copy": k8_copy_ms,
                                       "rest": stage_ms["backward"] - k8_ms - k8_copy_ms}),
-        frames_per_s=DET_BATCH / (step_ms / 1e3), window_ms=window_ms,
+        frames_per_s=batch / (step_ms / 1e3), window_ms=window_ms,
         device_busy_share=busy_ms / window_ms, k8_device_ms=k8_ms,
         k8_share_of_device_time=k8_ms * profile_steps / busy_ms,
         per_step_ms=json.dumps(per_step))
+    return step_ms
 
 
 def phase_k8_times(inputs, launches, max_abs_err):
@@ -1510,7 +1854,7 @@ def phase_k8_times(inputs, launches, max_abs_err):
     plain_b = time_ms(lambda: rk.roi_align_batched_backward_reference(*args), iters=2, warmup=1)
     channels = dout.shape[2]
     nhwc = [torch.zeros((rois.shape[0], h, w, channels), device=rois.device) for h, w in shapes]
-    copy_ms = time_ms(lambda: [g.permute(0, 3, 1, 2).contiguous() for g in nhwc], iters=20)
+    copy_ms = time_ms(lambda: [rk.nchw_copy(g, torch.float32) for g in nhwc], iters=20)
     _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=rois.shape[0], channels=channels)
     t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
     row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
@@ -1530,6 +1874,54 @@ def phase_k8_times(inputs, launches, max_abs_err):
             "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None}, row["nchw_copy_ms"]
+
+
+def phase_k8_bf16_times(inputs, launches, max_abs_err):
+    """K8's bf16 mode at the 800 px training shape (B=4, N=320, P2-P5 of
+    200 x 272 to 25 x 34) beside its bound (scripts/kernel_bounds.py: the
+    float32 dOut read, the bf16 dF written) and its plain version, in turns:
+    plain, kernel, float32 kernel, kernel, float32 kernel, plain. `ms`
+    includes zeroing the float32 buffers and their copy to bf16 NCHW, which
+    is logged alone beside the float32 copy. No PyTorch call computes
+    RoIAlign's backward, so library_ms is null. Returns the row and the
+    copy's ms in each dtype, for the train step profiles."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    sys.path.insert(0, str(REPO / "scripts"))
+    import kernel_bounds as kb
+    dout, rois, levels, shapes = inputs
+    args = (dout, rois, levels, shapes, ROI_STRIDES)
+    bf16 = torch.bfloat16
+    plain_a = time_ms(lambda: rk.roi_align_batched_backward_reference(*args, dtype=bf16),
+                      iters=2, warmup=1)
+    kernel_a = time_ms(lambda: rk.roi_align_batched_backward(*args, dtype=bf16), iters=20)
+    f32_a = time_ms(lambda: rk.roi_align_batched_backward(*args), iters=20)
+    kernel_b = time_ms(lambda: rk.roi_align_batched_backward(*args, dtype=bf16), iters=20)
+    f32_b = time_ms(lambda: rk.roi_align_batched_backward(*args), iters=20)
+    plain_b = time_ms(lambda: rk.roi_align_batched_backward_reference(*args, dtype=bf16),
+                      iters=2, warmup=1)
+    channels = dout.shape[2]
+    nhwc = [torch.zeros((rois.shape[0], h, w, channels), device=rois.device) for h, w in shapes]
+    copy_ms = {str(dtype).split(".")[1]: time_ms(
+        lambda: [rk.nchw_copy(g, dtype) for g in nhwc], iters=20)
+        for dtype in (bf16, torch.float32)}
+    _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=rois.shape[0],
+                                    channels=channels, itemsize=2)
+    t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
+    row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
+           "f32_ms": (f32_a + f32_b) / 2, "f32_ms_runs": [f32_a, f32_b],
+           "nchw_copy_ms": json.dumps(copy_ms),
+           "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log("times", kernel="K8_bf16", images=rois.shape[0], rois=rois.shape[1], channels=channels,
+        shapes=shapes, mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row)
+    return {"name": "roi_align_batched_backward (bf16)", "route": "cuda",
+            "source": "objectpermanence_tpu_torch/csrc/roi_align.cu",
+            "replaces": "objectpermanence_tpu/ops/pallas_roi_align.py:858",
+            "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None}, copy_ms
 
 
 WINDOWED_KERNELS = {
@@ -1609,6 +2001,7 @@ def main() -> int:
     weights = flagship_weights(device)
     max_abs_err = compare_kernel(BATCH, weights, device)
     compare_kernel(RAGGED_BATCH, weights, device)
+    k1_bf16_error = phase_opnet_bf16_vs_plain(weights, device)
     lstm_errors = phase_lstm_vs_plain(weights, device)
     detector = detector_setup(device)
     roi_errors, roi_inputs = phase_roi_align_vs_plain(detector)
@@ -1617,23 +2010,36 @@ def main() -> int:
     windowed_errors["K7_bf16"], native_bf16_inputs = phase_roi_align_bf16_vs_plain(device)
     train_set, dev_set = detection_sets(REPO / "build" / "chip_smoke_detection")
     k8_error, k8_inputs = phase_roi_align_grad_vs_plain(dettrain_detector(device), train_set)
+    k8_bf16_error, k8_bf16_inputs = phase_roi_align_bf16_grad_vs_plain(device, train_set)
     launches = phase_main_path(weights, device)
+    k1_bf16_launches = phase_main_path_bf16(weights, device)
     train_launches = phase_train_path(device)
     preprocess_launches = phase_preprocess_path(device)
     detector_train_launches = phase_detector_train_path(train_set, dev_set)
+    train800_launches = phase_detector_train_800_path(train_set, dev_set)
     preprocess_800_launches = phase_preprocess_800_path(device)
     phase_detector_train_step_swap(device, train_set)
+    phase_detector_train_800_step_swap(device, train_set)
     phase_train_step_profile(device)
     phase_detect_profile(detector)
     phase_detect_800_profile(det800_bf16, det800_detector(device, "float32"))
-    kernels = [phase_times(weights, device, launches, max_abs_err)]
+    kernels = [phase_times(weights, device, launches, max_abs_err),
+               phase_times(weights, device, k1_bf16_launches, k1_bf16_error, torch.bfloat16)]
     kernels += phase_lstm_times(weights, device, train_launches, lstm_errors)
     kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
     k8_row, k8_copy_ms = phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error)
-    kernels.append(k8_row)
+    k8_bf16_row, k8_800_copy_ms = phase_k8_bf16_times(k8_bf16_inputs, train800_launches["K8"],
+                                                      k8_bf16_error)
+    kernels += [k8_row, k8_bf16_row]
     kernels += phase_windowed_times(windowed_inputs, native_bf16_inputs, preprocess_800_launches,
                                     windowed_errors)
-    phase_detector_train_step_profile(device, train_set, k8_copy_ms)
+    step_ms = {"native_fp32": phase_detector_train_step_profile(device, train_set, k8_copy_ms)}
+    for dtype in ("bfloat16", "float32"):
+        label = f"train800_{dtype}"
+        step_ms[label] = phase_detector_train_step_profile(
+            device, train_set, k8_800_copy_ms[dtype], recipe=train800_recipe(dtype),
+            batch=TRAIN800_BATCH, label=label)
+    log("detector_train_steps", step_ms=json.dumps(step_ms))
     print(smi, flush=True)  # again, so that the output's end names the card and its limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),

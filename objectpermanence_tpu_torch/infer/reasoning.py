@@ -2,9 +2,10 @@
 `objectpermanence_tpu/infer/reasoning.py`: ingest -> batched forward on
 the card -> integer pixel boxes -> per-video `<name>_bb.json`.
 
-On CUDA the OPNet forward is the fused kernel (`ops/opnet_fused.py`). There
-is one card, so there is no mesh and no batch padding: the kernel masks a
-ragged last batch itself.
+On CUDA the OPNet forward is the fused kernel (`ops/opnet_fused.py`), in
+float32 or with bf16 operands (`make_predict_step(compute_dtype=...)`).
+There is one card, so there is no mesh and no batch padding: the kernel
+masks a ragged last batch itself.
 """
 
 from pathlib import Path
@@ -21,25 +22,37 @@ from objectpermanence_tpu_torch.models.registry import ModelSpec, init_model
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
 
 
-def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32):
+def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32,
+                      compute_dtype=None):
     """`predict_step(model, boxes) -> (B, T, 4)` integer pixel boxes on
     `device` (the card unless "cpu"). `boxes` is a float32 array or tensor
     `(B, T, 15, F)`. `out_dtype` is int32, as the reference's output arrays,
     or int16, which holds 320x240 pixel coordinates exactly.
+
+    `compute_dtype` (None: float32, or torch.bfloat16) picks the fused
+    kernel's operands on the card, as JAX's picks its Pallas kernel's on the
+    TPU: bf16 trades about a pixel of box precision for half the weight
+    bytes. Off the card it is ignored, as JAX's CPU path ignores it: the
+    plain forward runs in float32.
 
     On the card TF32 is switched off for matmuls and cuDNN, so the input
     projection outside the kernel keeps fp32 parity with the reference."""
     device = resolve_device(device)
     if out_dtype not in (torch.int16, torch.int32):
         raise ValueError(f"out_dtype must be torch.int16 or torch.int32, got {out_dtype}")
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be None, torch.float32 or torch.bfloat16, "
+                        f"got {compute_dtype}")
+    fused_dtype = torch.float32
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        fused_dtype = compute_dtype or torch.float32
 
     @torch.inference_mode()
     def predict_step(model, boxes):
         boxes = torch.as_tensor(boxes, dtype=torch.float32).to(device).contiguous()
-        out = model(boxes)
+        out = model(boxes, compute_dtype=fused_dtype)
         if spec.double_output:
             out = out[0]
         return denormalize_boxes(out, out_dtype)

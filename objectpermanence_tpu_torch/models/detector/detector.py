@@ -7,13 +7,16 @@ fixed pyramid, proposals and detections are fixed-width tensors padded with
 `NEG_INF` scores. Where JAX `vmap`s over the frames of a chunk, the port
 runs the chunk as a batch dimension: NMS takes every (image, level) pair in
 one call, RoIAlign every image in one launch (`ops/roi_align_kernel.py`:
-K7, in training K8 for its backward, and K9 for the 800 px pyramid), the
-box head every roi of the chunk in one product.
+K7, or K9 for the 800 px pyramid; in training K8 is the backward of
+either), the box head every roi of the chunk in one product.
 
 `compute_dtype="bfloat16"` runs the backbone, FPN and heads in bfloat16
-with the parameters kept float32 (each layer casts them, `resnet.py`); the
+with the parameters kept float32 (each layer casts them, `resnet.py`, and
+in training the casts carry the gradient back to the float32 masters); the
 image is resized in float32 first, the heads emit float32, and box decode,
-top-k, NMS and postprocess stay float32, as in JAX. The backbone runs NCHW,
+top-k, NMS, postprocess, matching, sampling and the losses stay float32, as
+in JAX. Training takes either dtype and every `roi_backend`: the RoIAlign
+backward (K8) returns dF in the pyramid's dtype. The backbone runs NCHW,
 cuDNN's own layout; the RoIAlign kernel's wrapper copies P2-P5 to NHWC once
 per chunk. On the H100 that is faster than a channels_last backbone, around
 whose fp32 convolutions cuDNN transposes (PERF.md). TF32 is switched off
@@ -39,7 +42,7 @@ from objectpermanence_tpu_torch.models.detector.roi_heads import (
 from objectpermanence_tpu_torch.models.detector.rpn import RPNHead, generate_proposals
 from objectpermanence_tpu_torch.ops.nms import NEG_INF
 from objectpermanence_tpu_torch.ops.roi_align_kernel import (
-    roi_align_batched, roi_align_trainable, roi_align_windowed,
+    roi_align_batched, roi_align_trainable, roi_align_windowed, roi_align_windowed_trainable,
 )
 from objectpermanence_tpu_torch.ops.roi_align_window import contract_stats
 
@@ -98,23 +101,15 @@ class DetectorConfig:
         return [(math.ceil(h / s), math.ceil(w / s)) for s in self.strides]
 
 
-def check_supported(config: DetectorConfig, training: bool = False) -> None:
-    """Raise on the options the port does not run yet: bf16 and the
-    windowed RoIAlign in training."""
+def check_supported(config: DetectorConfig) -> None:
+    """Raise on a compute dtype or RoIAlign backend that JAX's config does
+    not name; every one it names runs in inference and in training."""
     if config.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                          f"got {config.compute_dtype!r}")
     if config.roi_backend not in ("auto", "pallas", "gather", "windowed"):
         raise ValueError(f"roi_backend must be auto, pallas, gather or windowed, "
                          f"got {config.roi_backend!r}")
-    if training and config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r} in training (K8 on the bf16 pyramid's "
-            f"float32 cotangent) is ROADMAP.md, Next slices, item 1 (800 px training)")
-    if training and config.roi_backend == "windowed":
-        raise NotImplementedError(
-            "roi_backend='windowed' in training is roi_align_windowed_trainable (K9 forward, "
-            "K8 backward), ROADMAP.md, Next slices, item 1 (800 px training)")
 
 
 class BackboneWithFPN(nn.Module):
@@ -244,12 +239,15 @@ def batched_roi_align(pyramid: List[torch.Tensor], proposals: torch.Tensor,
     kernel `roi_path` picks on the card (K7, `roi_align_pallas_batched` in
     JAX, or K9, `roi_align_pallas_windowed`) and by its plain version on the
     CPU. When a gradient is recorded for the pyramid, through the autograd
-    Function whose backward is K8; the proposals get none."""
+    Function whose backward is K8 (for K9, `roi_align_windowed_trainable`);
+    the proposals get none."""
     needs_grad = torch.is_grad_enabled() and any(p.requires_grad for p in pyramid)
-    check_supported(config, training=needs_grad)
+    check_supported(config)
     levels = assign_levels(proposals)
     path = roi_path(config, proposals.device, needs_grad)
-    if path == "windowed":
+    if path == "windowed" and needs_grad:
+        pooled = roi_align_windowed_trainable(pyramid, proposals, levels, ROI_STRIDES)
+    elif path == "windowed":
         pooled = roi_align_windowed(pyramid, proposals, levels, ROI_STRIDES)
     elif needs_grad:
         pooled = roi_align_trainable(pyramid, proposals, levels, ROI_STRIDES)

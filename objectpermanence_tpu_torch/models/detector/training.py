@@ -192,7 +192,7 @@ def detection_loss(model, images: torch.Tensor, gt_boxes: torch.Tensor, gt_label
     and validity (B, G). Without `draws`, they are made from `generator`.
     `on_stage(name)`, if given, is called as each stage has been issued:
     "backbone_fpn", "rpn_proposals", "roi_align", "heads_losses"."""
-    check_supported(config, training=True)
+    check_supported(config)
     mark = on_stage or (lambda name: None)
     pyramid = forward_features(model, preprocess_images(images, config))
     mark("backbone_fpn")

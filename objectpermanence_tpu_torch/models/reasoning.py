@@ -29,7 +29,8 @@ class OPNet(nn.Module):
 
     `forward` is the whole net as `ops/opnet_fused.py::opnet_fused_forward`:
     the fused kernel (K1) on CUDA tensors, its plain step loop on CPU
-    tensors; it is for inference and records no gradient. `forward_layers`
+    tensors, with float32 or bfloat16 operands (`compute_dtype`); it is for
+    inference and records no gradient. `forward_layers`
     is the same function layer by layer (`opnet_apply`), which the train and
     eval steps call: its LSTMs run on the recurrence kernels (K2/K3, or K4
     without a gradient) on CUDA tensors."""
@@ -45,10 +46,10 @@ class OPNet(nn.Module):
         self.video_lstm = LSTM(feat, vid_hidden, generator)
         self.box_head = Linear(vid_hidden, BB_OUT_DIM, generator)
 
-    def forward(self, boxes: torch.Tensor):
+    def forward(self, boxes: torch.Tensor, compute_dtype: torch.dtype = torch.float32):
         return opnet_fused_forward(
             boxes, self.att_lstm.w_ih, self.att_lstm.w_hh, self.att_head.w,
-            self.video_lstm.w_ih, self.video_lstm.w_hh, self.box_head.w)
+            self.video_lstm.w_ih, self.video_lstm.w_hh, self.box_head.w, compute_dtype)
 
     def forward_layers(self, boxes: torch.Tensor):
         """`boxes (B, T, 15, F)` -> `(y (B, T, 4), logits (B, 15, T))`, layer

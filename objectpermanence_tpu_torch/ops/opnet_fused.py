@@ -9,8 +9,17 @@ JAX layout `w (in, out)`, LSTM gates `[i, f, g, o]`, no biases.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `opnet_forward_reference`, a step-by-step loop of the same
-arithmetic. fp32 only; the bf16 operand mode of the TPU kernel is not
-ported yet.
+arithmetic.
+
+`compute_dtype=torch.bfloat16` is the TPU kernel's bf16 operand mode: the
+six weights and the boxes are rounded to bf16, and `xproj1 = scene @ W1_ih`
+of the rounded values, summed in float32, is rounded to bf16 too; the h/c
+carries, every product's sum, the softmax and both outputs stay float32
+(`pallas_scan.py:462-482`; XLA rounds the float32 scene to bf16 before its
+bf16 product).
+The kernel streams those bf16 values; the plain version rounds them and
+runs the float32 step loop, so both compute the float32 function of the
+same bf16 values.
 """
 
 import ctypes
@@ -20,23 +29,38 @@ import torch
 from objectpermanence_tpu_torch.ops import _build
 from objectpermanence_tpu_torch.ops.lstm import lstm_cell
 
-_FN = None
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+_FNS = {}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = _build.load("opnet_fused").opnet_fused_forward_f32
+def _kernel(compute_dtype=torch.float32):
+    """The C entry of K1 for `compute_dtype`'s operands."""
+    name = "opnet_fused_forward_bf16" if compute_dtype == torch.bfloat16 else \
+        "opnet_fused_forward_f32"
+    if name not in _FNS:
+        fn = getattr(_build.load("opnet_fused"), name)
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return _FNS[name]
 
 
-def opnet_forward_reference(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
-    """Plain PyTorch OPNet forward, one step at a time, on any device."""
+def _rounded(x, compute_dtype):
+    """x's values in `compute_dtype`, read back as float32."""
+    return x if compute_dtype == torch.float32 else x.to(compute_dtype).float()
+
+
+def opnet_forward_reference(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
+                            compute_dtype=torch.float32):
+    """Plain PyTorch OPNet forward, one step at a time, on any device; with
+    `compute_dtype=torch.bfloat16`, on the weights, boxes and input
+    projection rounded to bf16, as the kernel's bf16 mode reads them."""
+    w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head = (
+        _rounded(w, compute_dtype) for w in (w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head))
+    boxes = _rounded(boxes, compute_dtype)
     batch, seq_len, num_objects, feat = boxes.shape
-    xproj1 = torch.matmul(boxes.reshape(batch, seq_len, num_objects * feat), w1_ih)
+    xproj1 = _rounded(torch.matmul(boxes.reshape(batch, seq_len, num_objects * feat), w1_ih),
+                      compute_dtype)
     h1 = boxes.new_zeros(batch, w1_hh.shape[0])
     c1 = torch.zeros_like(h1)
     h2 = boxes.new_zeros(batch, w2_hh.shape[0])
@@ -59,7 +83,10 @@ def _unit_major(w):
     return w.view(rows, 4, cols // 4).transpose(1, 2).reshape(rows, cols)
 
 
-def _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
+def _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head, compute_dtype):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
+                        f"got {compute_dtype}")
     tensors = {"boxes": boxes, "w1_ih": w1_ih, "w1_hh": w1_hh, "w_att": w_att,
                "w2_ih": w2_ih, "w2_hh": w2_hh, "w_head": w_head}
     for name, x in tensors.items():
@@ -94,36 +121,58 @@ def _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
         raise ValueError(f"hidden widths must be multiples of 4, got {att_hidden}, {vid_hidden}")
 
 
-def opnet_fused_forward(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head):
-    """`boxes (B, T, O, F)` -> `(y (B, T, 4), logits (B, O, T))`.
+def kernel_operands(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
+                    compute_dtype=torch.float32):
+    """The kernel's seven inputs, each contiguous in `compute_dtype`:
+    `xproj1 (B, T, 4*H1)` unit-major, the boxes, W1_hh, W2_ih and W2_hh
+    unit-major, W_att and W_head transposed. In bf16, xproj1 is the plain
+    version's product (the float32 sum of the rounded scene and W1_ih),
+    made unit-major and rounded in one copy."""
+    batch, seq_len, num_objects, feat = boxes.shape
+    att_hidden = w1_hh.shape[0]
+    boxes = boxes.to(compute_dtype)
+    scene = boxes.view(batch, seq_len, num_objects * feat)
+    if compute_dtype == torch.float32:
+        xproj1 = torch.matmul(scene, _unit_major(w1_ih))
+    else:
+        xproj1 = torch.empty((batch, seq_len, att_hidden, 4), dtype=compute_dtype,
+                             device=boxes.device)
+        xproj1.copy_(torch.matmul(scene.float(), _rounded(w1_ih, compute_dtype))
+                     .view(batch, seq_len, 4, att_hidden).transpose(2, 3))
+        xproj1 = xproj1.view(batch, seq_len, 4 * att_hidden)
+    return (xproj1, boxes, _unit_major(w1_hh).to(compute_dtype),
+            w_att.t().contiguous().to(compute_dtype), _unit_major(w2_ih).to(compute_dtype),
+            _unit_major(w2_hh).to(compute_dtype), w_head.t().contiguous().to(compute_dtype))
+
+
+def opnet_fused_forward(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
+                        compute_dtype=torch.float32):
+    """`boxes (B, T, O, F)` float32 -> `(y (B, T, 4), logits (B, O, T))`
+    float32; weights float32, `compute_dtype` float32 or bfloat16 (the
+    kernel's operands, above).
 
     CUDA tensors launch the kernel (and count one launch); CPU tensors run
     `opnet_forward_reference`. The input projection `scene @ w1_ih` is one
     torch.matmul outside the kernel, as XLA computed it outside Pallas; for
     fp32 parity TF32 must be off (`torch.backends.cuda.matmul.allow_tf32`)."""
-    _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head)
+    _check(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head, compute_dtype)
     if boxes.device.type == "cpu":
-        return opnet_forward_reference(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head)
+        return opnet_forward_reference(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
+                                       compute_dtype)
     if boxes.device.type != "cuda":
         raise ValueError(f"opnet_fused_forward runs on cuda or cpu, got {boxes.device}")
 
     batch, seq_len, num_objects, feat = boxes.shape
     att_hidden, vid_hidden = w1_hh.shape[0], w2_hh.shape[0]
-    fn = _kernel()
+    fn = _kernel(compute_dtype)
     with torch.cuda.device(boxes.device):
-        xproj1 = torch.matmul(boxes.view(batch, seq_len, num_objects * feat),
-                              _unit_major(w1_ih))  # (B, T, 4*H1), unit-major
-        w1_hh_u = _unit_major(w1_hh)
-        w2_ih_u = _unit_major(w2_ih)
-        w2_hh_u = _unit_major(w2_hh)
-        w_att_t = w_att.t().contiguous()
-        w_head_t = w_head.t().contiguous()
+        operands = kernel_operands(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
+                                   compute_dtype)
         y = torch.empty((batch, seq_len, 4), dtype=torch.float32, device=boxes.device)
         logits = torch.empty((batch, num_objects, seq_len), dtype=torch.float32,
                              device=boxes.device)
-        err = fn(xproj1.data_ptr(), boxes.data_ptr(), w1_hh_u.data_ptr(), w_att_t.data_ptr(),
-                 w2_ih_u.data_ptr(), w2_hh_u.data_ptr(), w_head_t.data_ptr(),
-                 y.data_ptr(), logits.data_ptr(), batch, seq_len, num_objects, feat,
+        err = fn(*[x.data_ptr() for x in operands], y.data_ptr(), logits.data_ptr(),
+                 batch, seq_len, num_objects, feat,
                  att_hidden, vid_hidden, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"opnet_fused kernel launch failed: cudaError {err}")

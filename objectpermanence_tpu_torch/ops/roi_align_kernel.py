@@ -14,13 +14,18 @@ Counterparts of `objectpermanence_tpu/ops/pallas_roi_align.py`:
   meaning here and are not taken.
 - `roi_align_batched_backward` (K8, `_pallas_roi_align_tiled_batched_bwd`):
   K7's transpose in the features, `dOut (B, N, C, pooled, pooled)` ->
-  `[(B, C, H_l, W_l)]`; rois and levels get no gradient, as the callers'
-  `stop_gradient`s give them none in JAX.
+  `[(B, C, H_l, W_l)]` in float32 or, for bfloat16 features, bfloat16;
+  rois and levels get no gradient, as the callers' `stop_gradient`s give
+  them none in JAX.
 - `roi_align_trainable` (`_tiled_batched_diff`, the custom VJP): K7 forward,
   K8 backward, under `RoIAlignFunction`.
 - `roi_align_windowed` (K9, `roi_align_pallas_windowed`): K7's function
   with the taps outside each roi's window dropped (`ops/roi_align_window.py`),
   counting its out-of-contract rois.
+- `roi_align_windowed_trainable` (`roi_align_windowed_trainable`): K9
+  forward, K8 backward (the exact function's transpose, as JAX's backward
+  is the VJP of its gather), under `RoIAlignFunction`. A roi out of the
+  window contract so gets a gradient of taps its forward dropped, as in JAX.
 
 Each entry point counts its own launches. On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it runs the plain version,
@@ -28,17 +33,24 @@ kernel or raises; on a CPU tensor it runs the plain version,
 `multilevel_roi_align_backward` and
 `ops/roi_align_window.py::multilevel_roi_align_windowed`. The forwards take
 float32 or bfloat16 features and return float32 (the plain versions read
-bfloat16 as float32); K8 is float32.
+bfloat16 as float32). K8 sums the float32 cotangent with float32 weights
+into float32 buffers in both modes; for bfloat16 features dF is rounded to
+bfloat16 once, in the copy out of those buffers. JAX's bf16 K8 instead
+rounds its interpolation weights and its first product to bf16
+(`pallas_roi_align.py:784-787, 839`); the port keeps them float32, as its
+bf16 forwards do, and as JAX's gather VJP does.
 
 The kernel reads each level NHWC-contiguous: a level in channels_last memory
 format is passed as it is; any other layout, such as the detector's NCHW
 pyramid, costs one copy of the level (at the detector's native shape, the
 209 MB of P2-P5 read and written once per chunk). K8 accumulates into zeroed
 NHWC buffers and copies them back to contiguous NCHW, the layout of the
-levels it is the gradient of.
+levels it is the gradient of, casting to the features' dtype in the same
+copy.
 """
 
 import ctypes
+import functools
 from typing import List, Sequence
 
 import numpy as np
@@ -212,11 +224,14 @@ def roi_align_tiled(features: List[torch.Tensor], rois: torch.Tensor, levels: to
 
 def _check_backward(grad: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
                     shapes: Sequence[Sequence[int]], strides: Sequence[int],
-                    sampling_ratio: int):
+                    sampling_ratio: int, dtype: torch.dtype):
     """Raise on what K8 does not take: `grad (B, N, C, p, p)` float32 with
-    the rois' B and N, and one (H, W) shape per stride."""
+    the rois' B and N, one (H, W) shape per stride, and dF in float32 or
+    bfloat16."""
     if not isinstance(grad, torch.Tensor) or grad.dtype != torch.float32:
         raise TypeError("grad must be a float32 torch.Tensor")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dF's dtype must be torch.float32 or torch.bfloat16, got {dtype}")
     if grad.dim() != 5 or grad.shape[-1] != grad.shape[-2] or tuple(grad.shape[:2]) != tuple(
             rois.shape[:2]):
         raise ValueError(f"grad must be (B, N, C, p, p) with the rois' (B, N) = "
@@ -241,27 +256,31 @@ def _check_backward(grad: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor
 def roi_align_batched_backward_reference(grad: torch.Tensor, rois: torch.Tensor,
                                          levels: torch.Tensor,
                                          shapes: Sequence[Sequence[int]],
-                                         strides: Sequence[int],
-                                         sampling_ratio: int = 2) -> List[torch.Tensor]:
+                                         strides: Sequence[int], sampling_ratio: int = 2,
+                                         dtype: torch.dtype = torch.float32
+                                         ) -> List[torch.Tensor]:
     """Plain PyTorch K8: `multilevel_roi_align_backward` image by image (an
-    explicit `index_add_` scatter), on any device."""
+    explicit `index_add_` scatter, in float32), on any device, then cast to
+    `dtype`."""
     per_image = [multilevel_roi_align_backward(grad[b], shapes, rois[b], levels[b], strides,
                                                sampling_ratio)
                  for b in range(rois.shape[0])]
-    return [torch.stack(level) for level in zip(*per_image)]
+    return [torch.stack(level).to(dtype) for level in zip(*per_image)]
 
 
 def roi_align_batched_backward(grad: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
                                shapes: Sequence[Sequence[int]], strides: Sequence[int],
-                               sampling_ratio: int = 2) -> List[torch.Tensor]:
+                               sampling_ratio: int = 2,
+                               dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
     """K8. dOut `grad (B, N, C, p, p)`, the forward's rois (B, N, 4) and
     levels (B, N), and the levels' `shapes [(H_l, W_l)]` -> the features'
-    gradient `[(B, C, H_l, W_l)]`, contiguous NCHW (the kernel's NHWC
-    buffers, copied)."""
-    _check_backward(grad, rois, levels, shapes, strides, sampling_ratio)
+    gradient `[(B, C, H_l, W_l)]` in `dtype` (the features' own: float32 or
+    bfloat16), contiguous NCHW: the kernel's float32 NHWC buffers, copied
+    and cast in one pass."""
+    _check_backward(grad, rois, levels, shapes, strides, sampling_ratio, dtype)
     if rois.device.type == "cpu":
         return roi_align_batched_backward_reference(grad, rois, levels, shapes, strides,
-                                                    sampling_ratio)
+                                                    sampling_ratio, dtype)
     batch, n, channels, pooled = grad.shape[:4]
     nhwc = [torch.zeros((batch, h, w, channels), dtype=torch.float32, device=grad.device)
             for h, w in shapes]
@@ -277,40 +296,48 @@ def roi_align_batched_backward(grad: torch.Tensor, rois: torch.Tensor, levels: t
         if err != 0:
             raise RuntimeError(f"roi_align backward kernel launch failed: cudaError {err}")
         roi_align_batched_backward.launches += 1
-    return [g.permute(0, 3, 1, 2).contiguous() for g in nhwc]
+    return [nchw_copy(g, dtype) for g in nhwc]
+
+
+def nchw_copy(nhwc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K8's buffer `nhwc (B, H, W, C)` as a contiguous NCHW tensor in
+    `dtype`, in one copy (the layout change and the cast together)."""
+    batch, height, width, channels = nhwc.shape
+    out = torch.empty((batch, channels, height, width), dtype=dtype, device=nhwc.device)
+    return out.copy_(nhwc.permute(0, 3, 1, 2))
 
 
 class RoIAlignFunction(torch.autograd.Function):
-    """K7 forward, K8 backward (the plain versions of both on the CPU). The
-    gradient reaches the features only."""
+    """A RoIAlign forward, `forward(features, rois, levels, strides, pooled,
+    sampling_ratio)` (K7 or K9), with K8 as its backward (the plain versions
+    of each on the CPU). The gradient reaches the features only, in their
+    dtype."""
 
     @staticmethod
-    def forward(ctx, rois, levels, strides, pooled, sampling_ratio, *features):
+    def forward(ctx, forward, rois, levels, strides, pooled, sampling_ratio, *features):
         ctx.save_for_backward(rois, levels)
         ctx.strides, ctx.sampling_ratio = tuple(strides), sampling_ratio
         ctx.shapes = [tuple(f.shape[-2:]) for f in features]
-        return roi_align_batched(list(features), rois, levels, strides, pooled, sampling_ratio)
+        ctx.dtype = features[0].dtype
+        return forward(list(features), rois, levels, strides, pooled, sampling_ratio)
 
     @staticmethod
     def backward(ctx, grad):
         rois, levels = ctx.saved_tensors
         dfeatures = roi_align_batched_backward(grad.contiguous(), rois, levels, ctx.shapes,
-                                               ctx.strides, ctx.sampling_ratio)
-        return (None, None, None, None, None, *dfeatures)
+                                               ctx.strides, ctx.sampling_ratio, ctx.dtype)
+        return (None, None, None, None, None, None, *dfeatures)
 
 
 def roi_align_trainable(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,
                         strides: Sequence[int], pooled: int = 7,
                         sampling_ratio: int = 2) -> torch.Tensor:
     """K7 with K8 as its backward: `roi_align_batched`'s function, with a
-    gradient for the features. Rois and levels are taken as constants."""
+    gradient for the features (float32 or bfloat16, dF in their dtype).
+    Rois and levels are taken as constants."""
     _check(features, rois, levels, strides, pooled, sampling_ratio, image_dims=4)
-    if features[0].dtype != torch.float32:
-        raise NotImplementedError(
-            "RoIAlign's gradient (K8) takes float32 features; bf16 training is ROADMAP.md, "
-            "Next slices, item 1")
-    return RoIAlignFunction.apply(rois.detach(), levels.detach(), tuple(strides), pooled,
-                                  sampling_ratio, *features)
+    return RoIAlignFunction.apply(roi_align_batched, rois.detach(), levels.detach(),
+                                  tuple(strides), pooled, sampling_ratio, *features)
 
 
 def roi_align_windowed_reference(features: List[torch.Tensor], rois: torch.Tensor,
@@ -359,6 +386,22 @@ def roi_align_windowed(features: List[torch.Tensor], rois: torch.Tensor, levels:
         if counting:
             window_lib.count_dispatch(rois.shape[0] * rois.shape[1])
     return out
+
+
+def roi_align_windowed_trainable(features: List[torch.Tensor], rois: torch.Tensor,
+                                 levels: torch.Tensor, strides: Sequence[int], pooled: int = 7,
+                                 sampling_ratio: int = 2, channel_chunk: int = 128,
+                                 win: int = 48) -> torch.Tensor:
+    """K9 with K8 as its backward, JAX's `roi_align_windowed_trainable`:
+    `roi_align_windowed`'s function (its contract counting included), with
+    the exact RoIAlign's gradient for the features (float32 or bfloat16, dF
+    in their dtype). For a roi out of the window contract the backward so
+    keeps the taps the forward dropped, as JAX's does
+    (`pallas_roi_align.py:1194-1198`). Rois and levels are constants."""
+    _check(features, rois, levels, strides, pooled, sampling_ratio, image_dims=4)
+    forward = functools.partial(roi_align_windowed, channel_chunk=channel_chunk, win=win)
+    return RoIAlignFunction.apply(forward, rois.detach(), levels.detach(), tuple(strides),
+                                  pooled, sampling_ratio, *features)
 
 
 roi_align_batched.launches = 0

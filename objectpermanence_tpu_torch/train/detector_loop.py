@@ -96,7 +96,7 @@ def train_detector(train_dataset: DetectionDataset,
         raise NotImplementedError(
             "mesh: the port's multi-device layer is ROADMAP.md, Next slices, item 7; "
             "train_detector runs on one device")
-    check_supported(config, training=True)
+    check_supported(config)
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -7,8 +7,13 @@ written once). Pure arithmetic from shapes; runs anywhere.
 
 Peaks are NVIDIA's H100 SXM data-sheet figures at its 700 W limit: 67
 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s HBM3. Elements are fp32
-(4 bytes), except the RoIAlign forwards' bf16 feature modes, which read
-2-byte features (their sums and output stay fp32).
+(4 bytes), except in the bf16 modes: the RoIAlign forwards read 2-byte
+features (their sums and output stay fp32), K8's bf16 mode writes a 2-byte
+dF (it reads the fp32 dOut), and K1's bf16 mode reads 2-byte weights and
+boxes (its outputs stay fp32). K1's bf16 mode is still counted at the fp32
+peak: it multiplies float32 carries by bf16 weights and sums in float32,
+which the bf16 tensor cores cannot do without rounding the carries, a
+different function.
 
 A RoIAlign forward needs only the pixels its rois reach, which depends on
 the rois. Without rois this table counts the whole pyramid as read, an
@@ -24,14 +29,16 @@ PEAK_BYTES = 3.35e12
 F32 = 4
 
 
-def opnet_fused(batch=512, frames=300, objects=15, feat=6, h1=256, h2=512):
-    """K1 at the bench's served batch (bench.py: 512 videos x 300 frames)."""
+def opnet_fused(batch=512, frames=300, objects=15, feat=6, h1=256, h2=512, itemsize=F32):
+    """K1 at the bench's served batch (bench.py: 512 videos x 300 frames);
+    `itemsize` 2 for the bf16 mode's weights and boxes."""
     weights = (objects * feat * 4 * h1 + h1 * 4 * h1 + h1 * objects
                + feat * 4 * h2 + h2 * 4 * h2 + h2 * 4)
     flops = 2 * weights * batch * frames
-    bytes_ = F32 * (batch * frames * objects * feat + weights
-                    + batch * frames * (4 + objects))
-    return "B=512 T=300 H=256/512", flops, bytes_
+    bytes_ = (itemsize * (batch * frames * objects * feat + weights)
+              + F32 * batch * frames * (4 + objects))
+    dtype = "bf16" if itemsize == 2 else "f32"
+    return f"B={batch} T={frames} H={h1}/{h2}, {dtype}", flops, bytes_
 
 
 def lstm_forward(batch=16, frames=300, hidden=512, emit_cells=True):
@@ -83,6 +90,7 @@ P800 = [(200, 272), (100, 136), (50, 68), (25, 34)]
 
 KERNELS = [
     ("K1", "pallas_scan.py:485 opnet_fused_forward", opnet_fused()),
+    ("K1", "pallas_scan.py:485 opnet_fused_forward", opnet_fused(itemsize=2)),
     ("K2", "pallas_scan.py:179 _lstm_fwd_pallas", lstm_forward()),
     ("K3", "pallas_scan.py:221 _lstm_bwd_pallas", lstm_backward()),
     ("K4", "pallas_scan.py:347 lstm_scan_pallas", lstm_forward(emit_cells=False)),
@@ -94,6 +102,10 @@ KERNELS = [
     # recipe, scripts/two_stage_run.py), 300 proposals + 20 ground-truth boxes
     ("K8", "pallas_roi_align.py:858 _pallas_roi_align_tiled_batched_bwd",
      roi_align(NATIVE, 320, images=8)),
+    # K8's bf16 mode runs in the 800 px recipe's train step (train800 of
+    # scripts/detector_800px_run.py: batches of 4, 300 proposals + 20 gt)
+    ("K8", "pallas_roi_align.py:858 _pallas_roi_align_tiled_batched_bwd",
+     roi_align(P800, 320, images=4, itemsize=2)),
     ("K9", "pallas_roi_align.py:1052 _pallas_roi_align_windowed",
      roi_align(P800, 300, images=8)),
     ("K9", "pallas_roi_align.py:1052 _pallas_roi_align_windowed",

@@ -390,29 +390,3 @@ def test_params_after_the_updates_match_jax(step_case):
                                    err_msg=n)
         moved += int(not np.array_equal(want[n].numpy(), before[n].numpy()))
     assert moved > 0
-
-
-def test_windowed_backend_raises_in_training():
-    cfg = det.DetectorConfig(**TINY, roi_backend="windowed")
-    with pytest.raises(NotImplementedError,
-                       match="roi_align_windowed_trainable.*Next slices, item 1"):
-        det.check_supported(cfg, training=True)
-
-
-@pytest.mark.parametrize("entry", ["check_supported", "batched_roi_align", "roi_align_trainable"])
-def test_bf16_raises_in_training(entry):
-    """bf16 training (K8 on the bf16 pyramid's cotangent) is the next slice:
-    the config check, the RoIAlign dispatch with a gradient recorded, and
-    the autograd Function itself refuse it, naming the ROADMAP item."""
-    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
-    from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_trainable
-    cfg = det.DetectorConfig(**TINY, compute_dtype="bfloat16")
-    pyramid = [torch.zeros((1, 32, h, w), dtype=torch.bfloat16, requires_grad=True)
-               for h, w in cfg.feature_shapes()[:4]]
-    rois = torch.tensor([[[4.0, 4.0, 40.0, 40.0]]])
-    calls = {"check_supported": lambda: det.check_supported(cfg, training=True),
-             "batched_roi_align": lambda: det.batched_roi_align(pyramid, rois, cfg),
-             "roi_align_trainable": lambda: roi_align_trainable(
-                 pyramid, rois, torch.zeros((1, 1), dtype=torch.int32), ROI_STRIDES)}
-    with pytest.raises(NotImplementedError, match="bf16 training|training.*Next slices, item 1"):
-        calls[entry]()

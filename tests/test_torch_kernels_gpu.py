@@ -2,7 +2,7 @@
 fused OPNet forward (K1), the LSTM recurrence forward, backward and
 forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
 one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
-the bf16 modes of K7 and K9.
+the bf16 modes of K1, K7, K8 and K9.
 
 Marked `gpu`; without a CUDA card each test skips (decided inside the
 test). On a machine with an H100 and the CUDA toolkit:
@@ -23,7 +23,9 @@ K8 holds each level's gradient at 1e-4 x max(1, max |reference|): it sums
 many rois' shares with atomics, in an order that changes from run to run.
 K9 and the bf16 modes (which read the same bf16 values as their plain
 versions) are held at the same limit, and K9's count of out-of-contract
-rois equals the plain mask's.
+rois equals the plain mask's. K1's bf16 mode is held as K1 against its
+plain bf16 loop. K8's bf16 mode rounds float32 sums that its atomics order
+anew each run, so its dF is held within one bf16 ulp of max |reference|.
 """
 
 from pathlib import Path
@@ -91,6 +93,38 @@ def test_kernel_matches_plain(batch):
     diff = (denormalize_boxes(y) - denormalize_boxes(want_y)).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [512, 37, 1])
+def test_kernel_bf16_matches_plain(batch):
+    device = _card()
+    boxes, weights, _ = _inputs(batch, device)
+    before = opnet_fused_forward.launches
+    y, logits = opnet_fused_forward(boxes, *weights, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert opnet_fused_forward.launches == before + 1
+    want_y, want_logits = opnet_forward_reference(boxes, *weights, compute_dtype=torch.bfloat16)
+    assert y.dtype == logits.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(logits).all()
+    assert (y - want_y).abs().max().item() <= 1e-4
+    assert (logits - want_logits).abs().max().item() <= 1e-4
+    diff = (denormalize_boxes(y) - denormalize_boxes(want_y)).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_predict_step_bf16_on_cuda_goes_through_kernel():
+    from objectpermanence_tpu_torch.infer.reasoning import make_predict_step
+    device = _card()
+    boxes, weights, model = _inputs(8, device)
+    before = opnet_fused_forward.launches
+    got = make_predict_step(get_model_spec("opnet"), compute_dtype=torch.bfloat16)(model, boxes)
+    assert opnet_fused_forward.launches == before + 1
+    want_y, _ = opnet_forward_reference(boxes, *weights, compute_dtype=torch.bfloat16)
+    diff = (got - denormalize_boxes(want_y)).abs()
+    assert got.shape == (8, 300, 4) and diff.max().item() <= 1
 
 
 @pytest.mark.gpu
@@ -273,6 +307,70 @@ def test_roi_align_backward_matches_plain(batch, n):
         assert (a - w).abs().max().item() <= _roi_limit(w)
 
 
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n", [(4, 320), (3, 57), (1, 1)])
+def test_roi_align_backward_bf16_matches_plain(batch, n):
+    """dF in bf16 at the 800 px pyramid: the float32 mode's sums within
+    1e-4 x max(1, max |reference|), the bf16 dF within one bf16 ulp of
+    max |reference|."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched_backward, roi_align_batched_backward_reference,
+    )
+    device = _card()
+    feats, rois, levels = _pyramid_800(batch, n, device, torch.bfloat16, seed=n + 3)
+    grad = torch.from_numpy(np.random.RandomState(n).standard_normal(
+        (batch, n, 256, 7, 7)).astype(np.float32)).to(device)
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    before = roi_align_batched_backward.launches
+    got = roi_align_batched_backward(grad, rois, levels, shapes, ROI_STRIDES, dtype=torch.bfloat16)
+    sums = roi_align_batched_backward(grad, rois, levels, shapes, ROI_STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_batched_backward.launches == before + 2
+    want = roi_align_batched_backward_reference(grad, rois, levels, shapes, ROI_STRIDES)
+    for g, s, w, f in zip(got, sums, want, feats):
+        assert g.dtype == torch.bfloat16 and g.shape == f.shape and g.is_contiguous()
+        assert (s - w).abs().max().item() <= _roi_limit(w)
+        scale = w.abs().max().item()
+        assert scale == 0 or (g.float() - w.to(torch.bfloat16).float()).abs().max().item() <= \
+            _bf16_ulp(scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_windowed_trainable_launches_k9_forward_and_k8_backward(dtype):
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched_backward, roi_align_batched_backward_reference, roi_align_windowed,
+        roi_align_windowed_reference, roi_align_windowed_trainable,
+    )
+    device = _card()
+    feats, rois, levels = _pyramid_800(2, 40, device, getattr(torch, dtype), seed=6)
+    grad = torch.from_numpy(np.random.RandomState(6).standard_normal(
+        (2, 40, 256, 7, 7)).astype(np.float32)).to(device)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    before = (roi_align_windowed.launches, roi_align_batched_backward.launches)
+    out = roi_align_windowed_trainable(leaves, rois, levels, ROI_STRIDES)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    window_lib.reset_contract_stats()
+    assert (roi_align_windowed.launches, roi_align_batched_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = roi_align_windowed_reference(feats, rois, levels, ROI_STRIDES)
+    assert (out - want).abs().max().item() <= _roi_limit(want)
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    want_grads = roi_align_batched_backward_reference(grad, rois, levels, shapes, ROI_STRIDES)
+    for leaf, w in zip(leaves, want_grads):
+        assert leaf.grad.dtype == leaf.dtype
+        limit = _roi_limit(w) if dtype == "float32" else _bf16_ulp(max(w.abs().max().item(), 1e-30))
+        assert (leaf.grad.float() - w.to(leaf.dtype).float()).abs().max().item() <= limit
+
+
 @pytest.mark.gpu
 def test_roi_align_trainable_launches_k7_forward_and_k8_backward():
     from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
@@ -421,3 +519,53 @@ def test_800px_detector_on_cuda_goes_through_k9(dtype):
     assert (rk.roi_align_windowed.launches, rk.roi_align_batched.launches) == (
         before[0] + 1, before[1])
     assert boxes.shape == (8, 100, 4) and np.isfinite(boxes[valid]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,backend,forward", [("bfloat16", "windowed", "roi_align_windowed"),
+                                                   ("float32", "windowed", "roi_align_windowed"),
+                                                   ("bfloat16", "auto", "roi_align_batched")])
+def test_800px_train_step_on_cuda_launches_its_forward_and_k8_once(dtype, backend, forward):
+    """One full-width step of the train800 recipe (GroupNorm, 800 x 1088,
+    B=2): K9 (windowed) or K7 ("auto") in the forward, K8 in the backward,
+    once each; float32 master gradients."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector import anchors as anchor_lib
+    from objectpermanence_tpu_torch.models.detector.detector import (
+        Detector, DetectorConfig, init_detector,
+    )
+    from objectpermanence_tpu_torch.models.detector.training import (
+        make_detector_train_step, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    from objectpermanence_tpu_torch.train.detector_loop import warmup_schedule
+    device = _card()
+    config = DetectorConfig(backbone_norm="group", rpn_pre_nms_top_n=500, rpn_post_nms_top_n=300,
+                            roi_backend=backend, compute_dtype=dtype)
+    model = init_detector(Detector(config)).to(device)
+    tensors = [t for _, t in trainable_tensors(model)]
+    optimizer = torch.optim.SGD(tensors, lr=5e-3, momentum=0.9, weight_decay=5e-4)
+    anchors = [torch.from_numpy(a).to(device) for a in anchor_lib.pyramid_anchors(
+        config.feature_shapes(), config.strides, config.anchor_sizes)]
+    step = make_detector_train_step(config, anchors, optimizer, warmup_schedule(5e-3, 10))
+    scene = make_scene(3, num_frames=20)
+    images = torch.from_numpy(np.stack([draw_frames(scene, 3)[t] for t in (4, 12)])).float()
+    vis = [np.flatnonzero(scene["visible"][t]) for t in (4, 12)]
+    boxes = torch.zeros((2, 20, 4))
+    labels = torch.zeros((2, 20), dtype=torch.int64)
+    valid = torch.zeros((2, 20), dtype=torch.bool)
+    for i, (t, v) in enumerate(zip((4, 12), vis)):
+        boxes[i, :len(v)] = torch.from_numpy(scene["boxes"][t, v])
+        labels[i, :len(v)] = torch.from_numpy(scene["classes"][v])
+        valid[i, :len(v)] = True
+    fwd = getattr(rk, forward)
+    before = (fwd.launches, rk.roi_align_batched_backward.launches)
+    parts = step(model, images.to(device), boxes.to(device), labels.to(device), valid.to(device),
+                 generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    window_lib.reset_contract_stats()
+    assert (fwd.launches, rk.roi_align_batched_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(v) for v in parts.values())
+    assert all(t.dtype == torch.float32 and t.grad.dtype == torch.float32
+               and torch.isfinite(t.grad).all() for t in tensors)
