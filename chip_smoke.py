@@ -105,6 +105,11 @@ TRAIN800_BATCH, TRAIN800_EPOCHS, TRAIN800_TWIN_STEPS = 4, 2, 3
 SWAP_BF16_RTOL = 1e-2
 
 
+def cli_batch():
+    """The CLI's served batch (configs/inference_config.json), where K1 is also timed."""
+    return json.loads((REPO / "configs" / "inference_config.json").read_text())["batch_size"]
+
+
 def log(phase, **fields):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
@@ -192,6 +197,7 @@ def reset_launches():
 def phase_build():
     from objectpermanence_tpu_torch.ops import _build
     from objectpermanence_tpu_torch.ops.lstm_scan import launch_plan
+    from objectpermanence_tpu_torch.ops.opnet_fused import launch_plan as k1_plan
     t0 = time.perf_counter()
     builds = _build.build("opnet_fused", "lstm_scan", "roi_align")
     for name, b in builds.items():
@@ -205,6 +211,14 @@ def phase_build():
             units, blocks, smem = launch_plan(hidden, backward)
             log("plan", layer=layer, hidden=hidden, kernel="K3" if backward else "K2/K4",
                 units_per_block=units, blocks=blocks, smem_bytes=smem)
+    hidden = (LSTM_LAYERS["att_lstm"][1], LSTM_LAYERS["video_lstm"][1])
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (BATCH, cli_batch()):
+            plan = k1_plan(batch, *hidden, dtype)
+            log("plan", kernel="K1_bf16" if dtype == torch.bfloat16 else "K1", batch=batch,
+                hidden=f"{hidden[0]}/{hidden[1]}", video_groups=plan["groups"],
+                unit_slices=plan["slices"], blocks=plan["blocks"], smem_bytes=plan["smem"],
+                scratch_floats=plan["scratch"])
 
 
 def compare_kernel(batch, weights, device, compute_dtype=torch.float32):
@@ -565,9 +579,11 @@ def phase_times(weights, device, launches, max_abs_err, compute_dtype=torch.floa
     plain version and cuDNN's LSTMs composing the same function in the same
     dtype (`CudnnOPNet`), in turns: plain, kernel, library, kernel, plain;
     the bf16 mode times float32 K1 in the same turns, after each kernel
-    turn. The bound (scripts/kernel_bounds.py) counts the operands' bytes;
-    the products take float32 carries, which the bf16 tensor cores cannot
-    take without rounding them, so the bf16 mode stays at the fp32 peak."""
+    turn. Then the kernel and the library at the CLI's batch (B=16), in
+    turns kernel, library, kernel. The bound (scripts/kernel_bounds.py)
+    counts the operands' bytes; the products take float32 carries, which
+    the bf16 tensor cores cannot take without rounding them, so the bf16
+    mode stays at the fp32 peak."""
     from objectpermanence_tpu_torch.ops.opnet_fused import (
         opnet_forward_reference, opnet_fused_forward,
     )
@@ -596,6 +612,13 @@ def phase_times(weights, device, launches, max_abs_err, compute_dtype=torch.floa
         kernel_b = time_ms(kernel, iters=20)
         f32_runs += [time_ms(f32, iters=20)] if bf16 else []
         plain_b = time_ms(plain, iters=3, warmup=1)
+        small = served_boxes(cli_batch(), device)
+        small_runs = [time_ms(lambda: opnet_fused_forward(small, *weights,
+                                                          compute_dtype=compute_dtype), iters=20)]
+        library_ms_b16 = time_ms(lambda: library(small), iters=20)
+        small_runs.append(time_ms(lambda: opnet_fused_forward(small, *weights,
+                                                              compute_dtype=compute_dtype),
+                                  iters=20))
     kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
 
     batch, frames, objects, feat = boxes.shape
@@ -608,6 +631,8 @@ def phase_times(weights, device, launches, max_abs_err, compute_dtype=torch.floa
         kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b], **fields, plain_ms=plain_ms,
         plain_ms_runs=[plain_a, plain_b], library_ms=library_ms,
         library_max_abs_err_y=library_err, frames_per_s=batch * frames / (kernel_ms / 1e3),
+        kernel_ms_b16=sum(small_runs) / 2, kernel_ms_b16_runs=small_runs,
+        library_ms_b16=library_ms_b16,
         gflop=flops / 1e9, mbytes=bytes_ / 1e6, bound_ms=bound_ms, bound_by=bound_by,
         bound_peak="fp32 67 TFLOP/s")
     return {"name": "opnet_fused_forward (bf16)" if bf16 else "opnet_fused_forward",

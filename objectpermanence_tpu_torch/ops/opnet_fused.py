@@ -9,7 +9,10 @@ JAX layout `w (in, out)`, LSTM gates `[i, f, g, o]`, no biases.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `opnet_forward_reference`, a step-by-step loop of the same
-arithmetic.
+arithmetic. The kernel is a cooperative grid of video groups x unit slices
+(`launch_plan`), each block holding its slice of the recurrent weights in
+shared memory; it exchanges h through a float32 scratch buffer that the
+wrapper allocates, and raises if the grid does not fit the card at once.
 
 `compute_dtype=torch.bfloat16` is the TPU kernel's bf16 operand mode: the
 six weights and the boxes are rounded to bf16, and `xproj1 = scene @ W1_ih`
@@ -39,10 +42,32 @@ def _kernel(compute_dtype=torch.float32):
         "opnet_fused_forward_f32"
     if name not in _FNS:
         fn = getattr(_build.load("opnet_fused"), name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
+
+
+def launch_plan(batch, att_hidden, vid_hidden, compute_dtype=torch.float32):
+    """How K1 runs `batch` videos at widths `att_hidden`/`vid_hidden` on the
+    current card: {groups, slices, blocks, smem (bytes a block), scratch
+    (float32 elements)}. Raises if no grid fits the card at once."""
+    lib = _build.load("opnet_fused")
+    out = [ctypes.c_int() for _ in range(5)]
+    itemsize = 2 if compute_dtype == torch.bfloat16 else 4
+    err = lib.opnet_fused_plan(ctypes.c_int(batch), ctypes.c_int(att_hidden),
+                               ctypes.c_int(vid_hidden), ctypes.c_int(itemsize),
+                               *[ctypes.byref(x) for x in out])
+    _raise_on(err, "opnet_fused plan")
+    return dict(zip(("groups", "slices", "blocks", "smem", "scratch"), (x.value for x in out)))
+
+
+def _raise_on(err, what):
+    if err == 720:  # cudaErrorCooperativeLaunchTooLarge
+        raise RuntimeError(f"{what}: no grid fits the card at once (cudaError 720); "
+                           f"the kernel needs every block co-resident")
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
 
 
 def _rounded(x, compute_dtype):
@@ -166,16 +191,17 @@ def opnet_fused_forward(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
     att_hidden, vid_hidden = w1_hh.shape[0], w2_hh.shape[0]
     fn = _kernel(compute_dtype)
     with torch.cuda.device(boxes.device):
+        plan = launch_plan(batch, att_hidden, vid_hidden, compute_dtype)
         operands = kernel_operands(boxes, w1_ih, w1_hh, w_att, w2_ih, w2_hh, w_head,
                                    compute_dtype)
         y = torch.empty((batch, seq_len, 4), dtype=torch.float32, device=boxes.device)
         logits = torch.empty((batch, num_objects, seq_len), dtype=torch.float32,
                              device=boxes.device)
+        scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=boxes.device)
         err = fn(*[x.data_ptr() for x in operands], y.data_ptr(), logits.data_ptr(),
-                 batch, seq_len, num_objects, feat,
+                 scratch.data_ptr(), batch, seq_len, num_objects, feat,
                  att_hidden, vid_hidden, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"opnet_fused kernel launch failed: cudaError {err}")
+    _raise_on(err, "opnet_fused kernel launch")
     opnet_fused_forward.launches += 1
     return y, logits
 

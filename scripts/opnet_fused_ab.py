@@ -1,13 +1,15 @@
-"""The fused OPNet forward (K1, float32) timed in two checkouts of the
-repository on one CUDA card, in turns A, B, B, A, each turn a process of its
-own that builds its checkout's kernels: the bench's served boxes tiled to
-B=512 videos of T=300 frames and the flagship weights, as chip_smoke.py's
-`phase_times` runs K1 (CUDA events, mean of 20 calls after warmup).
+"""The fused OPNet forward (K1) timed in two checkouts of the repository on
+one CUDA card, in turns A, B, B, A, each turn a process of its own that
+builds its checkout's kernels: in each turn float32 and bf16 operands at
+B=512 (the bench's served boxes tiled to 512 videos of T=300 frames) and at
+B=16 (the CLI's served batch, `configs/inference_config.json`), flagship
+weights, as chip_smoke.py's `phase_times` runs K1 (CUDA events, mean of 20
+calls after warmup).
 
     python3 scripts/opnet_fused_ab.py A_ROOT B_ROOT
 
-Prints each turn's `[opnet_fused_ab]` line, with the registers nvcc gave
-the kernel, after its label and checkout.
+Prints each turn's `[opnet_fused_ab]` lines (one per mode and batch), with
+the registers nvcc gave the kernels, after its label and checkout.
 """
 
 import subprocess
@@ -15,8 +17,11 @@ import sys
 from pathlib import Path
 
 
+CLI_BATCH = 16
+
+
 def one_turn(root: Path) -> None:
-    """In this process: K1 of `root`'s port at B=512, T=300."""
+    """In this process: K1 of `root`'s port in both modes at B=512 and 16."""
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke
@@ -29,11 +34,15 @@ def one_turn(root: Path) -> None:
     log = _build.build("opnet_fused")["opnet_fused"].log
     registers = [line.strip() for line in log.splitlines() if "registers" in line]
     weights = chip_smoke.flagship_weights(device)
-    boxes = chip_smoke.served_boxes(chip_smoke.BATCH, device)
-    with torch.inference_mode():
-        ms = chip_smoke.time_ms(lambda: opnet_fused_forward(boxes, *weights), iters=20)
-    print(f"[opnet_fused_ab] batch={chip_smoke.BATCH} frames={chip_smoke.FRAMES} ms={ms} "
-          f"registers={registers}", flush=True)
+    for batch in (chip_smoke.BATCH, CLI_BATCH):
+        boxes = chip_smoke.served_boxes(batch, device)
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.inference_mode():
+                ms = chip_smoke.time_ms(
+                    lambda: opnet_fused_forward(boxes, *weights, compute_dtype=dtype), iters=20)
+            print(f"[opnet_fused_ab] dtype={str(dtype).split('.')[-1]} batch={batch} "
+                  f"frames={chip_smoke.FRAMES} ms={ms}", flush=True)
+    print(f"[opnet_fused_ab] registers={registers}", flush=True)
 
 
 def main() -> int:

@@ -12,7 +12,8 @@ test). On a machine with an H100 and the CUDA toolkit:
 (`--noconftest` because `tests/conftest.py` imports JAX, which that
 machine does not have.)
 
-Flagship weights, served boxes tiled to B videos of T=300 frames. The
+Flagship weights (K1 also at two other widths, seeded), served boxes tiled
+to B videos of T=300 frames. The
 kernel and `opnet_forward_reference` run the same float32 arithmetic with
 sums in another order: atol 1e-4 on `y` and the logits, and integer pixel
 boxes at most 1 px apart on at most 0.1% of the coordinates. The LSTM
@@ -76,8 +77,11 @@ def _inputs(batch, device):
     return torch.from_numpy(boxes).to(device), [w.detach() for w in weights], model
 
 
+K1_BATCHES = [512, 37, 1, 16, 1030]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [512, 37, 1])
+@pytest.mark.parametrize("batch", K1_BATCHES)
 def test_kernel_matches_plain(batch):
     device = _card()
     boxes, weights, _ = _inputs(batch, device)
@@ -96,7 +100,7 @@ def test_kernel_matches_plain(batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [512, 37, 1])
+@pytest.mark.parametrize("batch", K1_BATCHES)
 def test_kernel_bf16_matches_plain(batch):
     device = _card()
     boxes, weights, _ = _inputs(batch, device)
@@ -112,6 +116,53 @@ def test_kernel_bf16_matches_plain(batch):
     diff = (denormalize_boxes(y) - denormalize_boxes(want_y)).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3
+
+
+def _seeded_weights(att_hidden, vid_hidden, device, objects=15, feat=6, seed=0):
+    """OPNet weights at other widths, uniform in +-1/sqrt(fan-in) as
+    PyTorch's LSTM initialises them."""
+    rng = np.random.RandomState(seed)
+    shapes = [(objects * feat, 4 * att_hidden), (att_hidden, 4 * att_hidden),
+              (att_hidden, objects), (feat, 4 * vid_hidden), (vid_hidden, 4 * vid_hidden),
+              (vid_hidden, 4)]
+    bounds = [att_hidden, att_hidden, att_hidden, vid_hidden, vid_hidden, vid_hidden]
+    return [torch.from_numpy((rng.uniform(-1, 1, shape) / np.sqrt(n)).astype(np.float32))
+            .to(device) for shape, n in zip(shapes, bounds)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths", [(16, 24), (132, 260)])
+@pytest.mark.parametrize("batch", K1_BATCHES)
+def test_kernel_other_widths_match_plain(batch, widths, dtype):
+    """K1 at a narrow width and at one (132/260) that no slice count divides,
+    seeded weights, both operand modes."""
+    device = _card()
+    compute_dtype = getattr(torch, dtype)
+    boxes, _, _ = _inputs(batch, device)
+    weights = _seeded_weights(*widths, device)
+    y, logits = opnet_fused_forward(boxes, *weights, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    want_y, want_logits = opnet_forward_reference(boxes, *weights, compute_dtype=compute_dtype)
+    assert torch.isfinite(y).all() and torch.isfinite(logits).all()
+    assert (y - want_y).abs().max().item() <= 1e-4
+    assert (logits - want_logits).abs().max().item() <= 1e-4
+    diff = (denormalize_boxes(y) - denormalize_boxes(want_y)).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [16, 512])
+def test_opnet_plan(batch, dtype):
+    from objectpermanence_tpu_torch.ops.opnet_fused import launch_plan
+    _card()
+    props = torch.cuda.get_device_properties(0)
+    plan = launch_plan(batch, 256, 512, getattr(torch, dtype))
+    assert plan["groups"] * plan["slices"] == plan["blocks"] <= props.multi_processor_count
+    assert plan["smem"] <= props.shared_memory_per_block_optin
+    assert 1 <= plan["groups"] <= batch and plan["scratch"] > 0
 
 
 @pytest.mark.gpu
