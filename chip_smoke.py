@@ -207,10 +207,15 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line:
                 print("  " + line.strip(), flush=True)
     for layer, (_, hidden) in LSTM_LAYERS.items():
-        for backward in (False, True):
-            units, blocks, smem = launch_plan(hidden, backward)
-            log("plan", layer=layer, hidden=hidden, kernel="K3" if backward else "K2/K4",
-                units_per_block=units, blocks=blocks, smem_bytes=smem)
+        plan = launch_plan(hidden)
+        log("plan", layer=layer, hidden=hidden, kernel="K2/K4", units_per_block=plan["units"],
+            blocks=plan["blocks"], smem_bytes=plan["smem"])
+        for batch in (TRAIN_BATCH, RAGGED_TRAIN_BATCH):
+            plan = launch_plan(hidden, backward=True, batch=batch)
+            log("plan", layer=layer, hidden=hidden, kernel="K3", batch=batch,
+                video_groups=plan["groups"], unit_slices=plan["slices"],
+                units_per_block=plan["units"], blocks=plan["blocks"], smem_bytes=plan["smem"],
+                videos_staged=plan["stage"], unit_lanes=plan["lanes"])
     hidden = (LSTM_LAYERS["att_lstm"][1], LSTM_LAYERS["video_lstm"][1])
     for dtype in (torch.float32, torch.bfloat16):
         for batch in (BATCH, cli_batch()):
@@ -660,7 +665,12 @@ def lstm_bounds(batch, frames, hidden):
 
 def time_lstm_layer(layer, weights, device):
     """K2, K3, K4, their plain versions and cuDNN's nn.LSTM(bias=False) at
-    the training batch, in turns: plain, kernel, library, kernel, plain."""
+    the training batch, in turns: plain, kernel, library, kernel, library,
+    plain. K2 and K4's yardstick is cuDNN's forward without a graph; K3's is
+    cuDNN's backward alone, `torch.autograd.grad` through one kept forward
+    graph (it also computes dx and dW_ih). K3's row adds `layer_ms`, K3 with
+    `_LSTMScanFused.backward`'s two einsums for dW_ih and dx, the
+    like-for-like figure."""
     from objectpermanence_tpu_torch.ops.lstm_scan import (
         lstm_scan_backward, lstm_scan_backward_reference, lstm_scan_forward,
         lstm_scan_forward_reference, lstm_scan_hs,
@@ -671,41 +681,51 @@ def time_lstm_layer(layer, weights, device):
     h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
     c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
     dh_out = dout.transpose(0, 1).contiguous()
-    calls = {
-        "K2": (lambda: lstm_scan_forward(xproj, w_hh),
-               lambda: lstm_scan_forward_reference(xproj, w_hh)),
-        "K3": (lambda: lstm_scan_backward(xproj, h_prev, c_prev, cs, dh_out, w_hh),
-               lambda: lstm_scan_backward_reference(xproj, h_prev, c_prev, cs, dh_out, w_hh)),
-        "K4": (lambda: lstm_scan_hs(xproj, w_hh),
-               lambda: lstm_scan_forward_reference(xproj, w_hh)),
-    }
     cudnn = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0], bias=False, batch_first=True).to(device)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(w_ih.t())
         cudnn.weight_hh_l0.copy_(w_hh.t())
     x_leaf = x.detach().clone().requires_grad_(True)
+    graph_out, _ = cudnn(x_leaf)  # one forward, its graph kept for every backward
+    leaves = [x_leaf, cudnn.weight_ih_l0, cudnn.weight_hh_l0]
 
     def cudnn_forward():
         with torch.no_grad():
             cudnn(x)
 
-    def cudnn_forward_backward():
-        out, _ = cudnn(x_leaf)
-        out.backward(dout)
+    def cudnn_backward():
+        torch.autograd.grad(graph_out, leaves, dout, retain_graph=True)
 
-    library_forward = time_ms(cudnn_forward, iters=20)
-    library_backward = time_ms(cudnn_forward_backward, iters=20) - library_forward
+    def k3_layer():
+        dxproj, _ = lstm_scan_backward(xproj, h_prev, c_prev, cs, dh_out, w_hh)
+        torch.einsum("btd,tbh->dh", x, dxproj)
+        torch.einsum("tbh,dh->btd", dxproj, w_ih)
+
+    calls = {
+        "K2": (lambda: lstm_scan_forward(xproj, w_hh),
+               lambda: lstm_scan_forward_reference(xproj, w_hh), cudnn_forward),
+        "K3": (lambda: lstm_scan_backward(xproj, h_prev, c_prev, cs, dh_out, w_hh),
+               lambda: lstm_scan_backward_reference(xproj, h_prev, c_prev, cs, dh_out, w_hh),
+               cudnn_backward),
+        "K4": (lambda: lstm_scan_hs(xproj, w_hh),
+               lambda: lstm_scan_forward_reference(xproj, w_hh), cudnn_forward),
+    }
     bounds = lstm_bounds(TRAIN_BATCH, FRAMES, w_hh.shape[0])
     rows = {}
-    for tag, (kernel, plain) in calls.items():
+    for tag, (kernel, plain, library) in calls.items():
         plain_a = time_ms(plain, iters=2, warmup=1)
         kernel_a = time_ms(kernel, iters=20)
+        library_a = time_ms(library, iters=20)
         kernel_b = time_ms(kernel, iters=20)
+        library_b = time_ms(library, iters=20)
         plain_b = time_ms(plain, iters=2, warmup=1)
         rows[tag] = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
                      "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
-                     "library_ms": library_backward if tag == "K3" else library_forward,
+                     "library_ms": (library_a + library_b) / 2,
+                     "library_ms_runs": [library_a, library_b],
                      "bound_ms": bounds[tag][0], "bound_by": bounds[tag][1]}
+        if tag == "K3":
+            rows[tag]["layer_ms"] = time_ms(k3_layer, iters=20)
         log("times", kernel=tag, layer=layer, batch=TRAIN_BATCH, frames=FRAMES,
             hidden=w_hh.shape[0], **rows[tag])
     return rows

@@ -5,7 +5,8 @@ Counterparts of `objectpermanence_tpu/ops/pallas_scan.py`:
 - `lstm_scan_forward` (K2, `_lstm_fwd_pallas`): `xproj (T, B, 4H)`,
   `w_hh (H, 4H)` -> `hs, cs (T, B, H)`;
 - `lstm_scan_backward` (K3, `_lstm_bwd_pallas`): the reverse-time backward,
-  -> `dxproj (T, B, 4H)`, `dW_hh (H, 4H)`;
+  -> `dxproj (T, B, 4H)`, `dW_hh (H, 4H)`; on the card hand-written
+  launches for the gates of all steps, the carry loop and dW_hh;
 - `lstm_scan_hs` (K4's recurrence, `lstm_scan_pallas`): `hs` only;
 - `lstm_scan_fused(params, x)`: the differentiable layer `x (B, T, D) ->
   (B, T, H)` over K2 and K3, as `jax.custom_vjp` there;
@@ -22,6 +23,7 @@ TF32 off (`torch.backends.cuda.matmul.allow_tf32`).
 """
 
 import ctypes
+import functools
 from typing import Mapping
 
 import torch
@@ -42,15 +44,28 @@ def _kernel(name: str):
     return _FNS[name]
 
 
-def launch_plan(hidden: int, backward: bool = False):
-    """(units per block, blocks, shared memory bytes) the kernel takes at
-    hidden width `hidden` on the current card."""
+_PLAN_FIELDS = ("units", "blocks", "smem", "groups", "slices", "stage", "lanes", "scratch")
+
+
+def launch_plan(hidden: int, backward: bool = False, batch: int = 16, frames: int = 300):
+    """How the kernel is launched at hidden width `hidden` (and, for K3,
+    `batch` videos of `frames` steps) on the current card: units per block,
+    blocks, shared memory bytes, video groups x unit slices, videos of
+    dgates staged at once and unit lanes of a warp (K3's loop; the forward
+    has one group), and K3's scratch bytes."""
     lib = _build.load("lstm_scan")
-    units, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.lstm_scan_plan(ctypes.c_int(hidden), ctypes.c_int(int(backward)),
-                             ctypes.byref(units), ctypes.byref(blocks), ctypes.byref(smem))
+    out = (ctypes.c_int * len(_PLAN_FIELDS))()
+    err = lib.lstm_scan_plan(ctypes.c_int(hidden), ctypes.c_int(batch), ctypes.c_int(frames),
+                             ctypes.c_int(int(backward)), out)
     _raise_on(err, "lstm_scan plan")
-    return units.value, blocks.value, smem.value
+    return dict(zip(_PLAN_FIELDS, out))
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(device_index, hidden, batch, seq_len) -> int:
+    """K3's scratch bytes on this card (the plan depends on the card only
+    through its SM count and shared memory)."""
+    return launch_plan(hidden, True, batch, seq_len)["scratch"]
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -189,7 +204,9 @@ def lstm_scan_backward(xproj, h_prev, c_prev, cs, dh_out, w_hh):
     with torch.cuda.device(xproj.device):
         dxproj = torch.empty_like(xproj)
         d_w_hh = torch.empty_like(w_hh)
-        scratch = torch.empty((2, batch, hidden), dtype=torch.float32, device=xproj.device)
+        # dW_hh's partial sums and the loop's barrier counters (zeroed by the entry)
+        scratch = torch.empty(_scratch_bytes(xproj.device.index, hidden, batch, seq_len),
+                              dtype=torch.uint8, device=xproj.device)
         err = _kernel("lstm_scan_backward_f32")(
             xproj.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(), cs.data_ptr(),
             dh_out.data_ptr(), w_hh.data_ptr(), dxproj.data_ptr(), d_w_hh.data_ptr(),

@@ -18,7 +18,9 @@ kernel and `opnet_forward_reference` run the same float32 arithmetic with
 sums in another order: atol 1e-4 on `y` and the logits, and integer pixel
 boxes at most 1 px apart on at most 0.1% of the coordinates. The LSTM
 kernels hold `hs`, `cs` and `dxproj` at atol 1e-4 and `dW_hh` at 1e-4 x
-max(1, max |reference|), since it sums B x T terms. RoIAlign holds its
+max(1, max |reference|), since it sums B x T terms; K3 also at widths no
+unit split divides (seeded weights), and two of its calls are bitwise
+equal. RoIAlign holds its
 output at 1e-4 x max(1, max |reference|): the pyramid's values reach 1e3.
 K8 holds each level's gradient at 1e-4 x max(1, max |reference|): it sums
 many rois' shares with atomics, in an order that changes from run to run.
@@ -40,7 +42,7 @@ from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
 from objectpermanence_tpu_torch.ops.lstm import lstm_forward
 from objectpermanence_tpu_torch.ops.lstm_scan import (
-    lstm_scan_backward, lstm_scan_backward_reference, lstm_scan_forward,
+    launch_plan, lstm_scan_backward, lstm_scan_backward_reference, lstm_scan_forward,
     lstm_scan_forward_reference, lstm_scan_hs,
 )
 from objectpermanence_tpu_torch.ops.opnet_fused import (
@@ -202,7 +204,7 @@ def _layer_input(layer, boxes, model):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [16, 13, 1])
+@pytest.mark.parametrize("batch", [16, 13, 1, 37, 64])
 @pytest.mark.parametrize("layer", ["att_lstm", "video_lstm"])
 def test_lstm_kernels_match_plain(layer, batch):
     device = _card()
@@ -228,6 +230,66 @@ def test_lstm_kernels_match_plain(layer, batch):
         assert (got - want).abs().max().item() <= 1e-4
     limit = 1e-4 * max(1.0, want_d_w_hh.abs().max().item())
     assert (d_w_hh - want_d_w_hh).abs().max().item() <= limit
+
+
+def _lstm_backward_case(hidden, batch, device, seed, in_dim=6, frames=300):
+    """Seeded weights and inputs of one LSTM layer at `hidden` units, and the
+    forward's residuals from the plain loop."""
+    rng = np.random.default_rng(seed)
+    w_ih = torch.from_numpy((rng.standard_normal((in_dim, 4 * hidden)) * 0.3).astype(np.float32))
+    w_hh = torch.from_numpy((rng.standard_normal((hidden, 4 * hidden))
+                             / np.sqrt(hidden)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((frames, batch, in_dim)).astype(np.float32))
+    dh_out = torch.from_numpy(rng.standard_normal((frames, batch, hidden)).astype(np.float32))
+    xproj = torch.matmul(x.to(device), w_ih.to(device)).contiguous()
+    w_hh = w_hh.to(device)
+    hs, cs = lstm_scan_forward_reference(xproj, w_hh)
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+    return xproj, h_prev, c_prev, cs, dh_out.to(device), w_hh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 16, 37])
+@pytest.mark.parametrize("hidden", [24, 132, 260])
+def test_lstm_backward_other_widths_match_plain(hidden, batch):
+    """K3 at widths where no unit split divides the units evenly."""
+    device = _card()
+    args = _lstm_backward_case(hidden, batch, device, seed=hidden + batch)
+    before = lstm_scan_backward.launches
+    dxproj, d_w_hh = lstm_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert lstm_scan_backward.launches == before + 1
+    want_dxproj, want_d_w_hh = lstm_scan_backward_reference(*args)
+    assert torch.isfinite(dxproj).all() and torch.isfinite(d_w_hh).all()
+    assert (dxproj - want_dxproj).abs().max().item() <= 1e-4
+    limit = 1e-4 * max(1.0, want_d_w_hh.abs().max().item())
+    assert (d_w_hh - want_d_w_hh).abs().max().item() <= limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,batch", [(512, 16), (256, 13), (132, 37)])
+def test_lstm_backward_is_deterministic(hidden, batch):
+    """Two calls give bitwise-equal dxproj and dW_hh: every sum is taken in
+    a fixed order, with no atomics on data."""
+    device = _card()
+    args = _lstm_backward_case(hidden, batch, device, seed=7)
+    first = lstm_scan_backward(*args)
+    second = lstm_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [16, 132, 256, 260, 512])
+def test_lstm_backward_plan_fits_the_card(hidden):
+    _card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = launch_plan(hidden, backward=True)
+    assert 1 <= plan["blocks"] == plan["groups"] * plan["slices"] <= sms
+    assert plan["slices"] * plan["units"] >= hidden > (plan["slices"] - 1) * plan["units"]
+    assert plan["groups"] <= 16 and 1 <= plan["stage"] and plan["smem"] <= 232448
+    assert plan["scratch"] >= 4 * plan["groups"]
 
 
 @pytest.mark.gpu
