@@ -1072,9 +1072,9 @@ def profile_chunk(detector, frames, chunks=5, profile_chunks=3):
 def phase_detect_profile(detector):
     """A 30-frame chunk at the shipped preprocess config (`profile_chunk`),
     then the pyramid's layout: NCHW (the detector's: cuDNN's native fp32
-    layout, and K7's wrapper copies P2-P5 to NHWC) against channels_last
-    (NHWC in memory, what K7 reads, but cuDNN transposes around its fp32
-    convolutions), backbone+FPN and K7 together, in turns."""
+    layout) against channels_last (cuDNN transposes around its fp32
+    convolutions), backbone+FPN and K7 together, in turns; K7 reads either
+    in place."""
     from objectpermanence_tpu_torch.models.detector.detector import (
         batched_roi_align, forward_features, preprocess_images, propose,
     )
@@ -1317,16 +1317,18 @@ def phase_roi_times(inputs, launches, errors):
     """K7 at the detector's B=30, N=300 and K5/K6 at B=1, N=300, each beside
     its bound (scripts/kernel_bounds.py with the pixels the rois reach) and
     its plain version, in turns: plain, kernel, kernel, plain. `ms` is the wrapper's
-    time on the NCHW levels the detector gives it, their copy to NHWC
-    included; `nhwc_ms`, logged beside it, the same call on levels already
-    NHWC in memory. No single PyTorch call computes RoIAlign (torchvision,
-    which has one, is not installed), so library_ms is null."""
+    time on the NCHW levels the detector gives it, which the kernel reads in
+    place; `channels_last_ms`, logged beside it with the launch plan, the
+    same call on the levels in channels_last. No single PyTorch call
+    computes RoIAlign (torchvision, which has one, is not installed), so
+    library_ms is null."""
     from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
     from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
     from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
     feats, rois, levels = inputs
-    nhwc = [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    last = [f.contiguous(memory_format=torch.channels_last) for f in feats]
     channels = feats[0].shape[1]
+    plan = json.dumps(rk.launch_plan(channels, 7, 2, feats[0].element_size()))
 
     def args(tag, levels_in):
         if tag == "K7":
@@ -1337,17 +1339,17 @@ def phase_roi_times(inputs, launches, errors):
     kernels = {"K5": rk.roi_align_single, "K6": rk.roi_align_tiled, "K7": rk.roi_align_batched}
     rows = []
     for tag in ("K5", "K6", "K7"):
-        (main_args, images), (nhwc_args, _) = args(tag, feats), args(tag, nhwc)
+        (main_args, images), (last_args, _) = args(tag, feats), args(tag, last)
         kernel = kernels[tag]
         plain = rk.roi_align_batched_reference if tag == "K7" else multilevel_roi_align
         with torch.inference_mode():
             plain_a = time_ms(lambda: plain(*main_args), iters=3, warmup=1)
             kernel_a = time_ms(lambda: kernel(*main_args), iters=20)
-            nhwc_ms = time_ms(lambda: kernel(*nhwc_args), iters=20)
+            last_ms = time_ms(lambda: kernel(*last_args), iters=20)
             kernel_b = time_ms(lambda: kernel(*main_args), iters=20)
             plain_b = time_ms(lambda: plain(*main_args), iters=3, warmup=1)
         row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
-               "nhwc_ms": nhwc_ms,
+               "channels_last_ms": last_ms, "plan": plan,
                "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
                **roi_bound(feats, rois, levels, images)}
         log("times", kernel=tag, images=images, rois=rois.shape[1], channels=channels, **row)
@@ -1983,8 +1985,10 @@ def phase_windowed_times(inputs, native_bf16_inputs, launches, errors):
     (scripts/kernel_bounds.py with the features' element size and the pixels
     the rois reach: for K9, inside their windows) and its plain version, in
     turns: plain, kernel, kernel, plain. `ms` is the wrapper's time on the
-    NCHW levels the detector gives it, their copy to NHWC included. K7's
-    bf16 mode on the 800 px chunk is logged beside K9. K7 bf16's
+    NCHW levels the detector gives it, which the kernel reads in place;
+    `channels_last_ms`, logged beside it with the launch plan, the same call
+    on the levels in channels_last. K7's bf16 mode on the 800 px chunk is
+    logged beside K9. K7 bf16's
     max_abs_err is the larger of its two comparisons. No PyTorch call
     computes RoIAlign, so library_ms is null."""
     from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
@@ -2001,9 +2005,12 @@ def phase_windowed_times(inputs, native_bf16_inputs, launches, errors):
     rows = []
     for tag, (kernel, plain, (feats, tag_rois, tag_levels)) in cases.items():
         args = (feats, tag_rois, tag_levels, ROI_STRIDES)
+        last_args = ([f.contiguous(memory_format=torch.channels_last) for f in feats],
+                     *args[1:])
         with torch.inference_mode():
             plain_a = time_ms(lambda: plain(*args), iters=3, warmup=1)
             kernel_a = time_ms(lambda: kernel(*args), iters=20)
+            last_ms = time_ms(lambda: kernel(*last_args), iters=20)
             kernel_b = time_ms(lambda: kernel(*args), iters=20)
             plain_b = time_ms(lambda: plain(*args), iters=3, warmup=1)
         window = None
@@ -2011,6 +2018,9 @@ def phase_windowed_times(inputs, native_bf16_inputs, launches, errors):
             window = window_lib.Window.of([tuple(f.shape[-2:]) for f in feats], feats[0].shape[1],
                                           feats[0].element_size())
         row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
+               "channels_last_ms": last_ms,
+               "plan": json.dumps(rk.launch_plan(feats[0].shape[1], 7, 2,
+                                                 feats[0].element_size())),
                "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
                **roi_bound(feats, tag_rois, tag_levels, tag_rois.shape[0], window)}
         log("times", kernel=tag, images=tag_rois.shape[0], rois=tag_rois.shape[1],

@@ -17,9 +17,9 @@ image is resized in float32 first, the heads emit float32, and box decode,
 top-k, NMS, postprocess, matching, sampling and the losses stay float32, as
 in JAX. Training takes either dtype and every `roi_backend`: the RoIAlign
 backward (K8) returns dF in the pyramid's dtype. The backbone runs NCHW,
-cuDNN's own layout; the RoIAlign kernel's wrapper copies P2-P5 to NHWC once
-per chunk. On the H100 that is faster than a channels_last backbone, around
-whose fp32 convolutions cuDNN transposes (PERF.md). TF32 is switched off
+cuDNN's own layout, and the RoIAlign kernels read P2-P5 in place through
+their strides. On the H100 that is faster than a channels_last backbone,
+around whose fp32 convolutions cuDNN transposes (PERF.md). TF32 is switched off
 for matmuls and cuDNN.
 """
 

@@ -40,13 +40,11 @@ rounds its interpolation weights and its first product to bf16
 (`pallas_roi_align.py:784-787, 839`); the port keeps them float32, as its
 bf16 forwards do, and as JAX's gather VJP does.
 
-The kernel reads each level NHWC-contiguous: a level in channels_last memory
-format is passed as it is; any other layout, such as the detector's NCHW
-pyramid, costs one copy of the level (at the detector's native shape, the
-209 MB of P2-P5 read and written once per chunk). K8 accumulates into zeroed
-NHWC buffers and copies them back to contiguous NCHW, the layout of the
-levels it is the gradient of, casting to the features' dtype in the same
-copy.
+The forward kernels read each level in place through its element strides:
+the detector's NCHW pyramid, a channels_last one or any other view, with no
+copy (`launch_plan` sets their launch). K8 accumulates into zeroed NHWC
+buffers and copies them back to contiguous NCHW, the layout of the levels it
+is the gradient of, casting to the features' dtype in the same copy.
 """
 
 import ctypes
@@ -63,37 +61,126 @@ from objectpermanence_tpu_torch.ops.roi_align import (
 )
 
 MAX_LEVELS = 5
-MAX_POOLED = 9            # the output tile, 128 x pooled^2 floats, fits 48 KB
+MAX_POOLED = 9            # K8's output tile, 128 x pooled^2 floats, fits 48 KB
 MAX_SAMPLES = 32          # pooled * sampling_ratio per axis
+# The forward's launch (csrc/roi_align.cu): threads a block, the most channels
+# a block takes, and the shared memory a pass of channels may use, so that
+# three blocks share an SM at 7 x 2.
+FORWARD_THREADS = 256
+FORWARD_SLICE = 256
+TILE_BYTES = 64 * 1024
+SMEM_PER_BLOCK = 232448   # 227 KB: the most shared memory a block may have
+STATIC_SMEM = 2320        # the kernel's SampleTable and CompactTile, as ptxas lays them out
 
 _FNS = {}
 
 
+def _tile_pitch(pixels: int) -> int:
+    """The kernel's tile holds channels in pairs, a pair's pixels at an odd
+    pitch (`csrc/roi_align.cu::tile_pitch`)."""
+    return pixels | 1
+
+
+def _pass_bytes(channels: int, pitch: int, itemsize: int, bins: int) -> int:
+    """Shared memory of a pass of `channels` channels: their tile, then
+    their float32 output (`csrc/roi_align.cu::pass_bytes`)."""
+    return -(-((channels + 1) // 2 * pitch * 2 * itemsize) // 16) * 16 + channels * bins * 4
+
+
+def launch_plan(channels: int, pooled: int, sampling_ratio: int, itemsize: int) -> dict:
+    """How the forward kernel (K5-K7, K9) is launched for `channels`
+    channels of `itemsize` bytes (4: float32, 2: bfloat16) at `pooled` x
+    `sampling_ratio`: `slice`, the channels of a block, and `blocks`, the
+    slices that cover `channels`; `threads` a block; `smem`, its dynamic
+    shared memory (the sample and pixel tables, then `tile_bytes` for its
+    passes, which hold at least a pair of channels of the largest tile, 2k x
+    2k pixels for k = pooled * sampling_ratio). Raises on what does not
+    fit."""
+    if channels < 1 or itemsize not in (2, 4):
+        raise ValueError(f"the kernel takes channels >= 1 of 2 or 4 bytes, got {channels}, "
+                         f"{itemsize}")
+    if not (1 <= pooled <= MAX_POOLED and sampling_ratio >= 1
+            and pooled * sampling_ratio <= MAX_SAMPLES):
+        raise ValueError(f"the kernel takes pooled <= {MAX_POOLED} and pooled * "
+                         f"sampling_ratio <= {MAX_SAMPLES}, got {pooled}, {sampling_ratio}")
+    k = pooled * sampling_ratio
+    largest = _pass_bytes(2, _tile_pitch(4 * k * k), itemsize, pooled * pooled)
+    tile_bytes = max(TILE_BYTES, largest)
+    smem = 40 * k * k + tile_bytes
+    if smem + STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f"pooled {pooled} x {sampling_ratio} needs {smem + STATIC_SMEM} bytes "
+                         f"of shared memory, more than a block's {SMEM_PER_BLOCK}")
+    slice_ = min(channels, FORWARD_SLICE)
+    return {"slice": slice_, "blocks": -(-channels // slice_), "threads": FORWARD_THREADS,
+            "smem": smem, "tile_bytes": tile_bytes}
+
+
+def last_plan() -> dict:
+    """The plan and grid of the last forward launch, as the library recorded
+    them (the card only)."""
+    out = (ctypes.c_int * 5)()
+    _build.load("roi_align").roi_align_forward_last_plan(out)
+    return dict(zip(("slice", "threads", "smem", "tile_bytes", "blocks"), out))
+
+
 def _kernel(name: str = "roi_align_forward_f32"):
-    """The C entry `name` of the library. Forwards and backward take the
-    same arguments; the windowed forwards add the window (three ints) and
-    the out-of-contract count's pointer before the stream."""
+    """The C entry `name` of the library. The forwards take the levels'
+    strides after their scales and the plan after the sampling ratio; the
+    windowed forwards add the window (three ints) and the out-of-contract
+    count's pointer before the stream."""
     if name not in _FNS:
         fn = getattr(_build.load("roi_align"), name)
-        window = [ctypes.c_int] * 3 + [ctypes.c_void_p] if "windowed" in name else []
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + window + [ctypes.c_void_p])
+        levels = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)]
+        if "forward" in name:
+            window = [ctypes.c_int] * 3 + [ctypes.c_void_p] if "windowed" in name else []
+            fn.argtypes = (levels + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] + window
+                           + [ctypes.c_void_p])
+        else:
+            fn.argtypes = (levels + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
 
 
+def _scales(strides: Sequence[int]):
+    """1/stride of each level in float32, as the plain version computes it."""
+    return (ctypes.c_float * len(strides))(
+        *[float(np.float32(1.0) / np.float32(s)) for s in strides])
+
+
 def _level_args(nhwc: List[torch.Tensor], strides: Sequence[int]):
-    """ctypes arrays of the NHWC levels' pointers, heights, widths and 1/stride
-    (in float32, as the plain version computes it)."""
+    """ctypes arrays of K8's NHWC levels' pointers, heights, widths and
+    scales."""
     num = len(nhwc)
     return ((ctypes.c_void_p * num)(*[f.data_ptr() for f in nhwc]),
             (ctypes.c_int * num)(*[f.shape[1] for f in nhwc]),
-            (ctypes.c_int * num)(*[f.shape[2] for f in nhwc]),
-            (ctypes.c_float * num)(*[float(np.float32(1.0) / np.float32(s)) for s in strides]),
-            num)
+            (ctypes.c_int * num)(*[f.shape[2] for f in nhwc]), _scales(strides), num)
+
+
+def _forward_args(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,
+                  strides: Sequence[int], pooled: int, sampling_ratio: int,
+                  out: torch.Tensor, plan: dict):
+    """The forward C entry's arguments up to the window: the (B, C, H, W)
+    levels as they lie in memory (pointers, heights, widths, scales, element
+    strides), rois, int32 levels, the output, the sizes and the plan."""
+    for i, f in enumerate(features):
+        sy, sx = f.stride()[2:]
+        if (f.shape[2] - 1) * sy + (f.shape[3] - 1) * sx >= 2 ** 31:
+            raise ValueError(f"features[{i}]: a plane's offsets exceed 32 bits (strides "
+                             f"{f.stride()})")
+    num = len(features)
+    batch, channels = features[0].shape[:2]
+    return ((ctypes.c_void_p * num)(*[f.data_ptr() for f in features]),
+            (ctypes.c_int * num)(*[f.shape[2] for f in features]),
+            (ctypes.c_int * num)(*[f.shape[3] for f in features]), _scales(strides),
+            (ctypes.c_longlong * (4 * num))(*[st for f in features for st in f.stride()]),
+            num, rois.data_ptr(), levels.data_ptr(), out.data_ptr(), batch, rois.shape[1],
+            channels, pooled, sampling_ratio,
+            (ctypes.c_int * 4)(plan["slice"], plan["threads"], plan["smem"], plan["tile_bytes"]))
 
 
 def _check(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor,
@@ -145,11 +232,10 @@ def _launch(features, rois, levels, strides, pooled, sampling_ratio, window=None
                       device=rois.device)
     if batch == 0 or n == 0 or channels == 0:
         return out
-    # NHWC views; free when a level is channels_last already
-    nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in features]
     rois = rois.contiguous()
     levels = levels.to(torch.int32).contiguous()
     dtype = "bf16" if features[0].dtype == torch.bfloat16 else "f32"
+    plan = launch_plan(channels, pooled, sampling_ratio, features[0].element_size())
     if window is None:
         fn, extra = _kernel(f"roi_align_forward_{dtype}"), []
     else:
@@ -157,9 +243,8 @@ def _launch(features, rois, levels, strides, pooled, sampling_ratio, window=None
         extra = [window.size, window.y_quant, window.x_quant,
                  None if out_of_contract is None else out_of_contract.data_ptr()]
     with torch.cuda.device(rois.device):
-        err = fn(*_level_args(nhwc, strides), rois.data_ptr(), levels.data_ptr(),
-                 out.data_ptr(), batch, n, channels, pooled, sampling_ratio, *extra,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(*_forward_args(features, rois, levels, strides, pooled, sampling_ratio, out,
+                                plan), *extra, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {err}")
     return out

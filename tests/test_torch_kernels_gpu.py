@@ -26,7 +26,10 @@ K8 holds each level's gradient at 1e-4 x max(1, max |reference|): it sums
 many rois' shares with atomics, in an order that changes from run to run.
 K9 and the bf16 modes (which read the same bf16 values as their plain
 versions) are held at the same limit, and K9's count of out-of-contract
-rois equals the plain mask's. K1's bf16 mode is held as K1 against its
+rois equals the plain mask's. The RoIAlign forwards also read channels_last
+and strided levels in place (bitwise equal to the NCHW call and to a second
+call), run at other pooled sizes up to the largest compact tile, and launch
+with `launch_plan`'s plan. K1's bf16 mode is held as K1 against its
 plain bf16 loop. K8's bf16 mode rounds float32 sums that its atomics order
 anew each run, so its dF is held within one bf16 ulp of max |reference|.
 """
@@ -682,3 +685,124 @@ def test_800px_train_step_on_cuda_launches_its_forward_and_k8_once(dtype, backen
     assert all(torch.isfinite(v) for v in parts.values())
     assert all(t.dtype == torch.float32 and t.grad.dtype == torch.float32
                and torch.isfinite(t.grad).all() for t in tensors)
+
+
+NATIVE_SHAPES = ((64, 80), (32, 40), (16, 20), (8, 10))
+P800_SHAPES = ((200, 272), (100, 136), (50, 68), (25, 34))
+
+
+def _levels_in(feats, layout):
+    """The same values as `feats` in another memory layout: NCHW as given,
+    channels_last, or a view whose x stride is 2 (neither)."""
+    if layout == "channels_last":
+        return [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    if layout == "strided":
+        return [torch.stack([f, f], dim=-1)[..., 0] for f in feats]
+    return feats
+
+
+def _forward_case(batch, n, channels, shapes, dtype, device, seed):
+    """Seeded levels of `shapes` in `dtype` and rois of every size class,
+    with image 0's first rois: a sub-pixel roi whose samples share one
+    pixel, a roi over the whole image (level-5 clamp: the whole P5), one
+    outside the image and two 600 x 8 px (out of K9's contract)."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import assign_levels
+    rng = np.random.RandomState(seed)
+    feats = [torch.from_numpy(rng.standard_normal((batch, channels, h, w)).astype(np.float32)
+                              * 100).to(device=device, dtype=dtype) for h, w in shapes]
+    span = 4 * shapes[0][1]
+    xy = rng.uniform(-40, span, (batch, n, 2))
+    wh = np.exp(rng.uniform(np.log(0.3), np.log(span), (batch, n, 2)))
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    edge = [[10.2, 20.7, 10.3, 20.8], [-5, -5, span + 5, span + 5], [-300, -300, -200, -200],
+            [100, 200, 700, 208], [50, 100, 58, 700]]
+    if n:
+        rois[0, :min(n, len(edge))] = edge[:min(n, len(edge))]
+    rois = torch.from_numpy(rois).to(device)
+    return feats, rois, assign_levels(rois)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [96, 200, 256])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "strided"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["K7", "K9"])
+def test_roi_align_forward_reads_every_layout(kernel, dtype, layout, channels):
+    """K7 at the native and K9 at the 800 px pyramid, on ragged B and N,
+    read levels as they lie in memory: bitwise equal to the NCHW call and
+    to a second call, within 1e-4 x max of the plain version; K9's device
+    count of out-of-contract rois equals the plain mask's; the launch used
+    `launch_plan`'s plan."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+    device = _card()
+    shapes = NATIVE_SHAPES if kernel == "K7" else P800_SHAPES
+    feats, rois, levels = _forward_case(3, 57, channels, shapes, getattr(torch, dtype), device,
+                                        seed=channels)
+    fn, plain = ((rk.roi_align_batched, rk.roi_align_batched_reference) if kernel == "K7"
+                 else (rk.roi_align_windowed, rk.roi_align_windowed_reference))
+    levels_in = _levels_in(feats, layout)
+    window_lib.reset_contract_stats()
+    before = fn.launches
+    got = fn(levels_in, rois, levels, ROI_STRIDES)
+    again = fn(levels_in, rois, levels, ROI_STRIDES)
+    nchw = fn(feats, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    plan = rk.launch_plan(channels, 7, 2, feats[0].element_size())
+    assert rk.last_plan() == {k: plan[k] for k in ("slice", "threads", "smem", "tile_bytes",
+                                                   "blocks")}
+    want = plain(feats, rois, levels, ROI_STRIDES)
+    assert got.dtype == torch.float32 and got.shape == (3, 57, channels, 7, 7)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= _roi_limit(want)
+    assert torch.equal(got, again) and torch.equal(got, nchw)
+    if kernel == "K9":
+        mask = window_lib.windowed_out_of_contract_mask(
+            rois, levels, [(h, w, s) for (h, w), s in zip(shapes, ROI_STRIDES)],
+            channels=channels, itemsize=feats[0].element_size())
+        stats = window_lib.contract_stats()
+        assert stats == {"rois": 3 * 3 * 57, "out_of_contract": 3 * int(mask.sum())}
+        assert mask.sum() >= 2
+    window_lib.reset_contract_stats()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pooled,sampling", [(7, 2), (9, 3), (1, 32), (3, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_forward_largest_tiles(pooled, sampling, dtype):
+    """K7, K5 and K6 at other pooled sizes and sampling ratios, up to the
+    largest compact tile (2k x 2k pixels: the whole-image roi at the
+    level-5 clamp over the 800 px P5, and pooled 9 x 3), against the plain
+    version."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
+    device = _card()
+    feats, rois, levels = _forward_case(2, 9, 64, P800_SHAPES, getattr(torch, dtype), device,
+                                        seed=pooled * 100 + sampling)
+    args = (feats, rois, levels, ROI_STRIDES, pooled, sampling)
+    got = rk.roi_align_batched(*args)
+    want = rk.roi_align_batched_reference(*args)
+    one = ([f[0] for f in feats], rois[0], levels[0], ROI_STRIDES, pooled, sampling)
+    single, tiled = rk.roi_align_single(*one), rk.roi_align_tiled(*one)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 9, 64, pooled, pooled)
+    assert (got - want).abs().max().item() <= _roi_limit(want)
+    want_one = multilevel_roi_align([f[0].float() for f in feats], *one[1:])
+    for out in (single, tiled):
+        assert torch.equal(out, got[0]) and (out - want_one).abs().max().item() <= _roi_limit(
+            want_one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["roi_align_batched", "roi_align_windowed"])
+def test_roi_align_forward_empty_rois_launch_nothing(kernel):
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    device = _card()
+    feats, rois, levels = _forward_case(2, 0, 96, NATIVE_SHAPES, torch.float32, device, seed=1)
+    fn = getattr(rk, kernel)
+    before = fn.launches
+    out = fn(feats, rois, levels, ROI_STRIDES)
+    assert out.shape == (2, 0, 96, 7, 7) and fn.launches == before
