@@ -97,8 +97,9 @@ OUT_OF_CONTRACT_MIN = 4
 # epochs of the rendered set to 2 + 1 epochs of the 48 + 16 fixture frames, seeded
 # weights
 TRAIN800_BATCH, TRAIN800_EPOCHS, TRAIN800_TWIN_STEPS = 4, 2, 3
-# the swap step in bf16: K8's atomics move the float32 sums' last bits, which can
-# move a bf16 rounding of dF by one ulp and, through the bf16 backbone's backward,
+# the swap step in bf16: K8 adds the rois' shares in another order than the plain
+# scatter, which moves the float32 sums' last bits, which can move a bf16 rounding
+# of dF by one ulp and, through the bf16 backbone's backward,
 # its gradients: each within 1e-2 x max(1, max |plain's|); the first SGD step moves
 # a parameter by lr x its gradient, so each parameter after the update within lr
 # times that limit, plus two float32 ulps of the parameter
@@ -1398,8 +1399,8 @@ def phase_roi_align_grad_vs_plain(det, train_set):
     detector's pyramid of 8 fixture frames, its 300 proposals + the 20
     ground-truth rows (zero where invalid) per frame, edge rois over frame
     0's first ones, a seeded normal dOut; and ragged (B=3, N=57). Each level
-    within 1e-4 x max(1, max |ref|); the difference between two K8 calls on
-    the same input (atomics sum in another order each run) is logged."""
+    within 1e-4 x max(1, max |ref|), and two K8 calls on the same input
+    bitwise equal (each sum has one owner, which takes the rois in order)."""
     from objectpermanence_tpu_torch.models.detector.detector import (
         forward_features, preprocess_images, propose,
     )
@@ -1443,6 +1444,7 @@ def phase_roi_align_grad_vs_plain(det, train_set):
             run_to_run_max_abs_diff_per_level=reruns,
             levels_used=sorted(set(args[2].flatten().tolist())))
         assert all(e <= lim for e, lim in zip(errs, limits)), f"K8 disagrees at B={batch}, N={n}"
+        assert all(r == 0.0 for r in reruns), f"K8 differs from run to run: {reruns}"
         worst = max(worst, max(errs))
     return worst, (dout, rois, levels, shapes, [p.detach() for p in pyramid[:4]])
 
@@ -1459,8 +1461,9 @@ def phase_roi_align_bf16_grad_vs_plain(device, train_set):
     level, K8's float32 accumulators (its float32 mode on the same input)
     within 1e-4 x max(1, max |ref|); the bf16 dF of both trainable Functions
     (`roi_align_trainable`: K7 + K8; `roi_align_windowed_trainable`: K9 +
-    K8) within one bf16 ulp of max |ref| of the plain bf16 dF: the atomics'
-    order moves the float32 sums' last bits, which can move a rounding."""
+    K8) within one bf16 ulp of max |ref| of the plain bf16 dF: K8 sums in
+    another order than the plain scatter, which moves the float32 sums' last
+    bits, which can move a rounding. Two calls of each mode bitwise equal."""
     from objectpermanence_tpu_torch.models.detector.detector import (
         forward_features, preprocess_images, propose,
     )
@@ -1489,7 +1492,11 @@ def phase_roi_align_bf16_grad_vs_plain(device, train_set):
         args = (dout[:batch, :n].contiguous(), rois[:batch, :n].contiguous(),
                 levels[:batch, :n].contiguous(), shapes, ROI_STRIDES)
         accumulators = roi_align_batched_backward(*args)
+        again = roi_align_batched_backward(*args)
+        rounded = [roi_align_batched_backward(*args, dtype=torch.bfloat16) for _ in range(2)]
         torch.cuda.synchronize()
+        reruns = [max((a - b).abs().max().item(), (c.float() - d.float()).abs().max().item())
+                  for a, b, c, d in zip(accumulators, again, *rounded)]
         want = roi_align_batched_backward_reference(*args)
         errs, limits = zip(*[roi_err(g, w) for g, w in zip(accumulators, want)])
         ulps = [bf16_ulp(max(w.abs().max().item(), 1e-30)) for w in want]
@@ -1508,8 +1515,10 @@ def phase_roi_align_bf16_grad_vs_plain(device, train_set):
         log("roi_align_bf16_grad_vs_plain", kernel="K8_bf16", batch=batch, rois=n,
             shapes=shapes, accumulators_max_abs_err_per_level=list(errs),
             accumulators_limit_per_level=list(limits), bf16_limit_per_level=ulps, **fields,
+            run_to_run_max_abs_diff_per_level=reruns,
             levels_used=sorted(set(args[2].flatten().tolist())))
         assert all(e <= lim for e, lim in zip(errs, limits)), f"K8 disagrees at B={batch}, N={n}"
+        assert all(r == 0.0 for r in reruns), f"K8 differs from run to run: {reruns}"
     window_lib.reset_contract_stats()
     return worst, (dout, rois, levels, shapes)
 
@@ -1809,17 +1818,15 @@ STEP_STAGES = ("backbone_fpn", "rpn_proposals", "roi_align", "heads_losses", "ba
                "optimizer")
 
 
-def phase_detector_train_step_profile(device, train_set, k8_copy_ms, recipe=DETTRAIN,
-                                      batch=DET_BATCH, label="native_fp32", steps=5,
-                                      profile_steps=3):
+def phase_detector_train_step_profile(device, train_set, recipe=DETTRAIN, batch=DET_BATCH,
+                                      label="native_fp32", steps=5, profile_steps=3):
     """Where a full-width detector train step spends its time (`recipe` at
     `batch` frames; the dettrain recipe at B=8 by default): each
     stage by CUDA events recorded as the step issues it (the RPN's NMS
     rounds and the sampler wait on the host), the whole step, then a
     torch.profiler window with the device's busy share and K8's device time.
-    The backward's split: K8 from the profiler, its NHWC-to-NCHW copy from
-    the times phase (`k8_copy_ms`), the rest of the backward. Returns the
-    step's mean ms."""
+    The backward's split: K8's two kernels (binning, tiles) from the
+    profiler, the rest of the backward. Returns the step's mean ms."""
     from objectpermanence_tpu_torch.models.detector.training import (
         make_detector_train_step, trainable_tensors,
     )
@@ -1865,15 +1872,18 @@ def phase_detector_train_step_profile(device, train_set, k8_copy_ms, recipe=DETT
     kernels = device_kernel_ms(prof)
     busy_ms = sum(kernels.values())
     assert busy_ms > 0, "the profiler saw no device time"
-    k8_ms = sum(ms for name, ms in kernels.items() if "roi_align_backward_kernel" in name)
-    k8_ms /= profile_steps
-    assert k8_ms > 0, "the profiler saw no K8 in the train step"
+    k8_bin_ms = sum(ms for name, ms in kernels.items()
+                    if "roi_align_backward_bin_kernel" in name) / profile_steps
+    k8_tiles_ms = sum(ms for name, ms in kernels.items()
+                      if "roi_align_backward_kernel" in name) / profile_steps
+    k8_ms = k8_bin_ms + k8_tiles_ms
+    assert k8_bin_ms > 0 and k8_tiles_ms > 0, "the profiler saw no K8 in the train step"
     per_step = {name[:60]: ms / profile_steps
                 for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
     log("detector_train_step_profile", recipe=label, batch=batch, step_ms=step_ms,
         stage_ms=json.dumps(stage_ms), stages_sum_ms=sum(stage_ms.values()),
-        backward_split_ms=json.dumps({"k8": k8_ms, "k8_nchw_copy": k8_copy_ms,
-                                      "rest": stage_ms["backward"] - k8_ms - k8_copy_ms}),
+        backward_split_ms=json.dumps({"k8_bins": k8_bin_ms, "k8_tiles": k8_tiles_ms,
+                                      "rest": stage_ms["backward"] - k8_ms}),
         frames_per_s=batch / (step_ms / 1e3), window_ms=window_ms,
         device_busy_share=busy_ms / window_ms, k8_device_ms=k8_ms,
         k8_share_of_device_time=k8_ms * profile_steps / busy_ms,
@@ -1881,14 +1891,39 @@ def phase_detector_train_step_profile(device, train_set, k8_copy_ms, recipe=DETT
     return step_ms
 
 
+def k8_layout(rois, levels, shapes, channels, dtype, pooled=7, sampling=2):
+    """K8's plan at this shape and how its binning fell: the binning
+    kernel's device time (torch.profiler, mean of 10 calls: the wrapper
+    alone is host-bound), the tiles of an image, those no roi reaches, the
+    longest roi list of any tile, and the dOut re-read factor (each roi's
+    dOut is read once for every tile it reaches: the lists' total over the
+    rois)."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
+    args = (rois, levels, shapes, ROI_STRIDES, pooled, sampling, dtype)
+    counts = rk.roi_align_backward_bins(*args)["counts"].cpu()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            rk.roi_align_backward_bins(*args)
+        torch.cuda.synchronize()
+    bins_ms = sum(ms for name, ms in device_kernel_ms(prof).items()
+                  if "roi_align_backward_bin_kernel" in name) / 10
+    assert bins_ms > 0, "the profiler saw no binning kernel"
+    plan = rk.backward_launch_plan(channels, pooled, sampling, dtype.itemsize)
+    return {"bins_ms": bins_ms, "plan": json.dumps(plan),
+            "tiles": counts.shape[1], "empty_tile_share": float((counts == 0).float().mean()),
+            "busiest_tile_rois": int(counts.max()),
+            "dout_reread_factor": float(counts.sum()) / rois.shape[0] / rois.shape[1]}
+
+
 def phase_k8_times(inputs, launches, max_abs_err):
     """K8 at the training shape (B=8, N=320, the dettrain pyramid) beside
     its bound and its plain version, in turns: plain, kernel, kernel, plain.
-    `ms` is the wrapper's time with its copy of dF back to NCHW (the
-    levels' layout); that copy alone is logged as `nchw_copy_ms`. K7 at the
-    same shape is logged beside it. No PyTorch call
-    computes RoIAlign's backward (torchvision is not installed), so
-    library_ms is null."""
+    `ms` is the wrapper's time (the binning, then the tile kernel, writing
+    NCHW dF once); K8's plan, the binning alone and how the rois fell into
+    tiles (`k8_layout`) are logged beside it, and K7 at the same shape. No
+    PyTorch call computes RoIAlign's backward (torchvision is not
+    installed), so library_ms is null."""
     from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
     from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
     sys.path.insert(0, str(REPO / "scripts"))
@@ -1900,17 +1935,15 @@ def phase_k8_times(inputs, launches, max_abs_err):
     kernel_b = time_ms(lambda: rk.roi_align_batched_backward(*args), iters=20)
     plain_b = time_ms(lambda: rk.roi_align_batched_backward_reference(*args), iters=2, warmup=1)
     channels = dout.shape[2]
-    nhwc = [torch.zeros((rois.shape[0], h, w, channels), device=rois.device) for h, w in shapes]
-    copy_ms = time_ms(lambda: [rk.nchw_copy(g, torch.float32) for g in nhwc], iters=20)
     _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=rois.shape[0], channels=channels)
     t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
     row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
-           "nchw_copy_ms": copy_ms,
            "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     log("times", kernel="K8", images=rois.shape[0], rois=rois.shape[1], channels=channels,
-        mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row)
+        mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row,
+        **k8_layout(rois, levels, shapes, channels, torch.float32))
     with torch.inference_mode():
         k7_ms = time_ms(lambda: rk.roi_align_batched(feats, rois, levels, ROI_STRIDES), iters=20)
     log("times", kernel="K7", shape="training", images=rois.shape[0], rois=rois.shape[1],
@@ -1920,18 +1953,16 @@ def phase_k8_times(inputs, launches, max_abs_err):
             "replaces": "objectpermanence_tpu/ops/pallas_roi_align.py:858",
             "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None}, row["nchw_copy_ms"]
+            "bound_by": row["bound_by"], "library_ms": None}
 
 
 def phase_k8_bf16_times(inputs, launches, max_abs_err):
     """K8's bf16 mode at the 800 px training shape (B=4, N=320, P2-P5 of
     200 x 272 to 25 x 34) beside its bound (scripts/kernel_bounds.py: the
     float32 dOut read, the bf16 dF written) and its plain version, in turns:
-    plain, kernel, float32 kernel, kernel, float32 kernel, plain. `ms`
-    includes zeroing the float32 buffers and their copy to bf16 NCHW, which
-    is logged alone beside the float32 copy. No PyTorch call computes
-    RoIAlign's backward, so library_ms is null. Returns the row and the
-    copy's ms in each dtype, for the train step profiles."""
+    plain, kernel, float32 kernel, kernel, float32 kernel, plain, with K8's
+    plan and binning at this shape (`k8_layout`). No PyTorch call computes
+    RoIAlign's backward, so library_ms is null."""
     from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
     from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
     sys.path.insert(0, str(REPO / "scripts"))
@@ -1948,27 +1979,23 @@ def phase_k8_bf16_times(inputs, launches, max_abs_err):
     plain_b = time_ms(lambda: rk.roi_align_batched_backward_reference(*args, dtype=bf16),
                       iters=2, warmup=1)
     channels = dout.shape[2]
-    nhwc = [torch.zeros((rois.shape[0], h, w, channels), device=rois.device) for h, w in shapes]
-    copy_ms = {str(dtype).split(".")[1]: time_ms(
-        lambda: [rk.nchw_copy(g, dtype) for g in nhwc], iters=20)
-        for dtype in (bf16, torch.float32)}
     _, flops, bytes_ = kb.roi_align(shapes, rois.shape[1], images=rois.shape[0],
                                     channels=channels, itemsize=2)
     t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
     row = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
            "f32_ms": (f32_a + f32_b) / 2, "f32_ms_runs": [f32_a, f32_b],
-           "nchw_copy_ms": json.dumps(copy_ms),
            "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     log("times", kernel="K8_bf16", images=rois.shape[0], rois=rois.shape[1], channels=channels,
-        shapes=shapes, mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row)
+        shapes=shapes, mbytes=bytes_ / 1e6, gflop=flops / 1e9, **row,
+        **k8_layout(rois, levels, shapes, channels, bf16))
     return {"name": "roi_align_batched_backward (bf16)", "route": "cuda",
             "source": "objectpermanence_tpu_torch/csrc/roi_align.cu",
             "replaces": "objectpermanence_tpu/ops/pallas_roi_align.py:858",
             "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None}, copy_ms
+            "bound_by": row["bound_by"], "library_ms": None}
 
 
 WINDOWED_KERNELS = {
@@ -2082,18 +2109,15 @@ def main() -> int:
                phase_times(weights, device, k1_bf16_launches, k1_bf16_error, torch.bfloat16)]
     kernels += phase_lstm_times(weights, device, train_launches, lstm_errors)
     kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
-    k8_row, k8_copy_ms = phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error)
-    k8_bf16_row, k8_800_copy_ms = phase_k8_bf16_times(k8_bf16_inputs, train800_launches["K8"],
-                                                      k8_bf16_error)
-    kernels += [k8_row, k8_bf16_row]
+    kernels += [phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error),
+                phase_k8_bf16_times(k8_bf16_inputs, train800_launches["K8"], k8_bf16_error)]
     kernels += phase_windowed_times(windowed_inputs, native_bf16_inputs, preprocess_800_launches,
                                     windowed_errors)
-    step_ms = {"native_fp32": phase_detector_train_step_profile(device, train_set, k8_copy_ms)}
+    step_ms = {"native_fp32": phase_detector_train_step_profile(device, train_set)}
     for dtype in ("bfloat16", "float32"):
         label = f"train800_{dtype}"
         step_ms[label] = phase_detector_train_step_profile(
-            device, train_set, k8_800_copy_ms[dtype], recipe=train800_recipe(dtype),
-            batch=TRAIN800_BATCH, label=label)
+            device, train_set, recipe=train800_recipe(dtype), batch=TRAIN800_BATCH, label=label)
     log("detector_train_steps", step_ms=json.dumps(step_ms))
     print(smi, flush=True)  # again, so that the output's end names the card and its limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 // Multilevel RoIAlign forward and backward for Hopper (sm_90a): float32 or
-// bfloat16 features, float32 weights, sums and output.
+// bfloat16 features, float32 weights and sums; the forwards' output float32,
+// the backward's dF in the features' dtype.
 //
 // Replaces the Pallas TPU kernels of objectpermanence_tpu/ops/pallas_roi_align.py:
 // `_pallas_roi_align_tiled_batched` (K7, `roi_align_pallas_batched`, the
@@ -7,7 +8,7 @@
 // `_pallas_roi_align` (K5, `roi_align_pallas`) and `_pallas_roi_align_tiled`
 // (K6, `roi_align_pallas_tiled`); its backward
 // `_pallas_roi_align_tiled_batched_bwd` (K8, the features' gradient of
-// `roi_align_pallas_batched`, float32, below the forward); and
+// `roi_align_pallas_batched`, below the forward); and
 // `_pallas_roi_align_windowed` (K9, `roi_align_pallas_windowed`, the 800 px
 // pyramid's RoIAlign, the forward with a window). For image b and roi n,
 // pooled from its assigned FPN level l only:
@@ -79,36 +80,31 @@
 // output to the pyramid's dtype). The TPU kernels instead round their
 // interpolation weights to bf16; the port does not.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kMaxLevels = 5;
-constexpr int kChunk = 128;       // K8: channels per block, one per thread
-constexpr int kMaxSamples = 32;   // pooled * sampling_ratio per axis
-constexpr int kMaxThreads = 256;  // the forward's block, at most
+constexpr int kMaxPooled = 9;      // the wrappers' largest `pooled`
+constexpr int kMaxSamples = 32;    // pooled * sampling_ratio per axis
+constexpr int kMaxThreads = 256;   // the forward's block, at most
+constexpr int kBinThreads = 256;   // K8's binning block: 8 tiles, a warp each
+constexpr int kBackThreads = 512;  // K8's tile block, at most
+constexpr int kTileH = 16;         // rows of a K8 dF tile: a thread's accumulators
 
 // bfloat16 features are carried as their 16 bits; load_pair widens them to
 // float32 exactly (the bf16 bits are the float's upper half)
 using bf16_bits = unsigned short;
 
-template <typename T>
-struct LevelsT {
-  T* feat[kMaxLevels];  // NHWC (B, H_l, W_l, C), contiguous
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  float scale[kMaxLevels];  // 1 / stride
-  int num;
-};
-using GradLevels = LevelsT<float>;
-
-// The forwards' levels (B, C, H_l, W_l) in any layout, by element strides.
-// A pixel's offset within one (image, channel) plane, y * sy + x * sx, fits
-// 32 bits (the wrapper checks).
-template <typename T>
-struct StridedLevels {
-  const T* feat[kMaxLevels];
+// Levels (B, C, H_l, W_l) in any layout, by element strides: the forwards
+// read them (P = const T*), K8 writes dF into them (P = T*). A pixel's
+// offset within one (image, channel) plane, y * sy + x * sx, fits 32 bits
+// (the wrapper checks).
+template <typename P>
+struct Strided {
+  P feat[kMaxLevels];
   long long sb[kMaxLevels];
   long long sc[kMaxLevels];
   int sy[kMaxLevels];
@@ -117,6 +113,21 @@ struct StridedLevels {
   int w[kMaxLevels];
   float scale[kMaxLevels];  // 1 / stride
   int num;
+};
+template <typename T>
+using StridedLevels = Strided<const T*>;
+
+// K8's tiles: each level cut into tiles of kTileH x tile_w pixels, numbered
+// level by level, row-major within a level.
+struct Tiling {
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+  int tiles_x[kMaxLevels];       // tile columns of each level
+  int base[kMaxLevels + 1];      // its first tile; base[num]: the tiles of an image
+  int num;
+  int tile_w;
+  int tiles;                     // base[num]
 };
 
 // K9's window (size 0: none, K5-K8): the widened window size and the y and
@@ -127,9 +138,56 @@ struct Window {
   int quant_x;
 };
 
+// One sample of a roi on one axis: its two taps (clamped to the level), their
+// weights (1 - frac, frac; 0 for a tap K9's window drops), whether it lies
+// inside the level on this axis, and `bad`, 1 where K9's window drops a tap of
+// nonzero weight of a sample inside the level. `first` and `last` are the
+// roi's sides on the axis (y1, y2 or x1, x2) in image coordinates, `rcp` the
+// float32 reciprocal of `pooled`, `g` the sample's offset in bins
+// (sample_offset); a window of size 0 is none.
+struct Sample {
+  int i0, i1;
+  float w0, w1;
+  int inside, bad;
+};
+
+// Sample j's offset in bins: bin j / s, then (j % s + 0.5) / s of it.
+__device__ __forceinline__ float sample_offset(int j, int s) {
+  return __fadd_rn((float)(j / s), __fdiv_rn((float)(j % s) + 0.5f, (float)s));
+}
+
+__device__ __forceinline__ Sample sample_at(float first, float last, float scale, int extent,
+                                            float rcp, float g, int win_size, int quant) {
+  const float lo = __fmul_rn(first, scale);
+  const float hi = __fmul_rn(last, scale);
+  const float bin = __fmul_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), rcp);
+  const float coord = __fmaf_rn(g, bin, lo);
+  const float cl = fminf(fmaxf(coord, 0.0f), (float)(extent - 1));
+  Sample e;
+  e.i0 = (int)floorf(cl);
+  e.i1 = min(e.i0 + 1, extent - 1);
+  const float frac = __fsub_rn(cl, (float)e.i0);
+  e.inside = coord >= -1.0f && coord <= (float)extent;
+  e.w0 = __fsub_rn(1.0f, frac);
+  e.w1 = frac;
+  e.bad = 0;
+  if (win_size > 0) {
+    // the window's origin: one tap before the corner, inside the level
+    // zero-padded to the quantum, floored to the quantum
+    const int padded = (max(extent, win_size) + quant - 1) / quant * quant;
+    int origin = min(max((int)floorf(lo) - 1, 0), max(padded - win_size, 0));
+    origin = origin / quant * quant;
+    const int rel0 = e.i0 - origin, rel1 = e.i1 - origin;
+    if (rel0 < 0 || rel0 >= win_size) e.w0 = 0.0f;
+    if (rel1 < 0 || rel1 >= win_size) e.w1 = 0.0f;
+    e.bad = e.inside && (rel0 < 0 || rel0 > win_size - 1 || (frac > 0.0f && rel1 > win_size - 1));
+  }
+  return e;
+}
+
 // Every direction places the samples alike: rows 0..k-1 of the table are
 // the roi's y samples, of the second its x samples, each with its two taps
-// and their weights (1 - frac, frac; 0 for a tap K9's window drops).
+// and their weights (sample_at).
 // Threads 0..2k-1 each fill one entry; the caller synchronises.
 struct SampleTable {
   int i0[2][kMaxSamples];
@@ -148,37 +206,15 @@ __device__ __forceinline__ int fill_samples(SampleTable& t, const float* roi, fl
   if (threadIdx.x >= 2 * k) return 0;
   const int axis = threadIdx.x < k ? 0 : 1;  // 0: y, 1: x
   const int j = threadIdx.x - axis * k;
-  const float lo = __fmul_rn(roi[axis == 0 ? 1 : 0], scale);
-  const float hi = __fmul_rn(roi[axis == 0 ? 3 : 2], scale);
-  const float bin = __fmul_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), __frcp_rn((float)pooled));
-  const float g = __fadd_rn((float)(j / s), __fdiv_rn((float)(j % s) + 0.5f, (float)s));
-  const float coord = __fmaf_rn(g, bin, lo);
-  const int extent = axis == 0 ? H : W;
-  const float cl = fminf(fmaxf(coord, 0.0f), (float)(extent - 1));
-  const int i0 = (int)floorf(cl);
-  const int i1 = min(i0 + 1, extent - 1);
-  const float frac = __fsub_rn(cl, (float)i0);
-  const int inside = coord >= -1.0f && coord <= (float)extent;
-  float w0 = __fsub_rn(1.0f, frac), w1 = frac;
-  int bad = 0;
-  if (win.size > 0) {
-    // the window's origin: one tap before the corner, inside the level
-    // zero-padded to the quantum, floored to the quantum
-    const int quant = axis == 0 ? win.quant_y : win.quant_x;
-    const int padded = (max(extent, win.size) + quant - 1) / quant * quant;
-    int origin = min(max((int)floorf(lo) - 1, 0), max(padded - win.size, 0));
-    origin = origin / quant * quant;
-    const int rel0 = i0 - origin, rel1 = i1 - origin;
-    if (rel0 < 0 || rel0 >= win.size) w0 = 0.0f;
-    if (rel1 < 0 || rel1 >= win.size) w1 = 0.0f;
-    bad = inside && (rel0 < 0 || rel0 > win.size - 1 || (frac > 0.0f && rel1 > win.size - 1));
-  }
-  t.i0[axis][j] = i0;
-  t.i1[axis][j] = i1;
-  t.w0[axis][j] = w0;
-  t.w1[axis][j] = w1;
-  t.inside[axis][j] = inside;
-  return bad;
+  const Sample e = sample_at(roi[axis == 0 ? 1 : 0], roi[axis == 0 ? 3 : 2], scale,
+                             axis == 0 ? H : W, __frcp_rn((float)pooled), sample_offset(j, s),
+                             win.size, axis == 0 ? win.quant_y : win.quant_x);
+  t.i0[axis][j] = e.i0;
+  t.i1[axis][j] = e.i1;
+  t.w0[axis][j] = e.w0;
+  t.w1[axis][j] = e.w1;
+  t.inside[axis][j] = e.inside;
+  return e.bad;
 }
 
 __device__ __forceinline__ int clamp_level(int l, int num) {
@@ -488,109 +524,468 @@ roi_align_forward_kernel(StridedLevels<T> lv, const float* __restrict__ rois,
 }
 
 // K8, the transpose of the forward in the features:
-//   dF_l[b, y, x, c] += sum over the samples of bin (py, px) whose taps fall on
-//                       (y, x) of w_tap * dOut[b, n, c, py, px] / s^2,
-// over each roi's assigned level only; a sample outside the level adds
-// nothing, and a clamped tap lands where the forward read it. dF arrives
-// zeroed, NHWC. Rois and levels get no gradient.
+//   dF_l[b, c, y, x] = sum, over the rois n of image b assigned to level l
+//                      and the samples of their bins (py, px) whose taps fall
+//                      on (y, x), of w_tap * dOut[b, n, c, py, px] / s^2;
+// a sample outside the level adds nothing, and a clamped tap lands where the
+// forward read it. Rois and levels get no gradient. It replaces
+// `_pallas_roi_align_tiled_batched_bwd`, whose grid keeps each (image,
+// channel chunk)'s whole dF level resident while it walks the roi blocks in
+// order and adds `wy^T (dOut . wx)` for each.
 //
-// Design. The forward's sample table (built by fill_samples, so every sample
-// rounds as in the forward), and one block per
-// (128-channel chunk, roi, image), one thread per channel. The roi's dOut
-// tile (chunk x pooled x pooled, one contiguous run) is read into shared
-// memory first, so the loads are coalesced. Each thread then walks its 49
-// bins x s^2 samples and adds each sample's four weighted shares to its
-// taps with atomicAdd: a tap is one NHWC row, so a warp's 32 adds fall on
-// 128 contiguous bytes. Rois overlap, and the taps of neighbouring samples
-// coincide, so the sums need atomics; their order, and so the result's last
-// bits, change from run to run.
+// Design. A Hopper block cannot hold a level (P2 at 64 channels is 1.3 MB),
+// so each block owns a tile of dF instead, kTileH rows x tile_w columns of
+// one level of one image (a tile row is one 32-byte sector of dF: 8 float32
+// or 16 bf16 values) and a slice of 32 channels, and visits the rois that
+// reach it, in roi order. Two kernels, no atomics on dF:
+//  1. Binning (roi_align_backward_bin_kernel, one block per (8 tiles,
+//     image)): each roi's samples by sample_at, so they round as the
+//     forward's; the first and last tap of its inside samples on each axis
+//     bound its footprint (the taps are monotone in the sample). Each tile's
+//     warp lists the rois whose footprint meets its tile, 32 at a time in
+//     index order, so every list is in roi order. The blocks of an image
+//     also write each roi's table: its samples (taps and weights, zero
+//     outside the level) and its footprint.
+//  2. The tile kernel (roi_align_backward_kernel): the tile's list goes to
+//     shared memory; a ring of kStages rois' dOut slices (slice x pooled x
+//     pooled, one contiguous run, 16 bytes a copy) and tables arrives by
+//     cp.async ahead of use, and the block builds, from a roi's table, its
+//     weights restricted to the tile, Ax (pooled x tile_w) and Ay (pooled x
+//     kTileH). The contribution is the separable product Ay^T (dOut_c Ax):
+//     a warp owns one column x of the tile and the 32 channels, a thread the
+//     kTileH sums of its (channel, column) in registers; it forms v[py] =
+//     sum_px dOut_c[py, px] Ax[px, x] over the px whose samples reach x,
+//     then adds Ay[py, y] v[py] to the rows of the footprint. A warp whose
+//     column the roi misses skips it. One barrier a roi; the next roi's
+//     weights are built while this roi's sums run.
+//  3. Each sum has one owner and takes the rois in list order, so dF is the
+//     same bit for bit from run to run. At the end the tile goes through
+//     shared memory and out once, in dF's dtype (bf16 rounded once from the
+//     float32 sum), through the level's element strides with the threads
+//     along x, four values a store where a row allows; a tile no roi reaches
+//     writes zeros. No zero pass and no layout copy.
+// The plan (back_plan below, mirrored by
+// ops/roi_align_kernel.py::backward_launch_plan) sets tile_w, the slice, the
+// threads and the shared memory; roi_align_backward_last_plan reports the
+// last launch's.
 //
 // Bound. At the training shape (8 images x 320 rois, C=256, the 256 x 320
 // pyramid) the function must read the 128 MB dOut and write the 55.7 MB of
-// dF: 0.055 ms at 3.35 TB/s (scripts/kernel_bounds.py). This kernel issues
-// 4 atomics per sample and channel, 4 x 196 x 256 per roi and about 0.5 G
-// per call, which resolve in the 50 MB L2; that, not device memory, is what
-// limits it. Per-level tiles reduced in shared memory, or rois sorted by
-// pixel, are later work.
-__global__ void __launch_bounds__(kChunk)
-roi_align_backward_kernel(GradLevels lv, const float* __restrict__ rois,
-                          const int* __restrict__ levels, const float* __restrict__ dout,
-                          int N, int C, int pooled, int s) {
-  __shared__ SampleTable t;
-  extern __shared__ float tile[];  // kChunk * pooled * pooled
+// dF: 0.055 ms at 3.35 TB/s (scripts/kernel_bounds.py); at 800 px (4 x 320,
+// bf16 dF) 0.063 ms. This design reads a roi's dOut once for each tile its
+// footprint meets (chip_smoke.py logs that factor and the longest list).
+// What holds it above the bound (scripts/roi_align_backward_phases.py, by
+// ablation): the sums, the weights, the copies and the barrier a roi each
+// take a share, and at 800 px the blocks of the tiles no roi reaches, which
+// only write zeros; per roi and tile the block does little work between two
+// barriers, so the SM issues well below its rate.
 
-  const int c0 = blockIdx.x * kChunk;
-  const long roi = (long)blockIdx.z * N + blockIdx.y;
-  const int b = blockIdx.z;
-  const int bins = pooled * pooled;
+// A sample's entry in K8's table: its two taps and their weights, zero where
+// the sample lies outside the level.
+__device__ __forceinline__ int4 table_entry(const Sample& e) {
+  return make_int4(e.i0, e.i1, __float_as_int(e.inside ? e.w0 : 0.0f),
+                   __float_as_int(e.inside ? e.w1 : 0.0f));
+}
 
-  const int l = clamp_level(levels[roi], lv.num);
-  const int H = lv.h[l], W = lv.w[l];
-  fill_samples(t, rois + roi * 4, lv.scale[l], H, W, pooled, s);
-  // dOut[b, n, c0 : c0 + chunk, :, :] is one contiguous run
-  const int count = min(kChunk, C - c0) * bins;
-  const float* src = dout + (roi * C + c0) * bins;
-  for (int i = threadIdx.x; i < count; i += kChunk) tile[i] = __ldg(src + i);
-  __syncthreads();
+// A level's sizes and tiles, read with static indices (a kernel that indexes
+// its parameter arrays with a run-time level copies them to local memory).
+struct LevelOf {
+  int level, first_tile, tiles_x, h, w;
+  float scale;
+};
 
-  const int c = c0 + threadIdx.x;
-  if (c >= C) return;
-  float* g = lv.feat[l] + (long)b * H * W * C + c;
-  const float inv = 1.0f / (float)(s * s);
-  for (int py = 0; py < pooled; ++py) {
-    for (int px = 0; px < pooled; ++px) {
-      const float d = __fmul_rn(tile[threadIdx.x * bins + py * pooled + px], inv);
-      for (int iy = 0; iy < s; ++iy) {
-        const int jy = py * s + iy;
-        if (!t.inside[0][jy]) continue;
-        const long r0 = (long)t.i0[0][jy] * W, r1 = (long)t.i1[0][jy] * W;
-        const float hy = t.w0[0][jy], ly = t.w1[0][jy];
-        for (int ix = 0; ix < s; ++ix) {
-          const int jx = px * s + ix;
-          if (!t.inside[1][jx]) continue;
-          const int x0 = t.i0[1][jx], x1 = t.i1[1][jx];
-          const float hx = t.w0[1][jx], lx = t.w1[1][jx];
-          atomicAdd(g + (r0 + x0) * C, __fmul_rn(d, __fmul_rn(hy, hx)));
-          atomicAdd(g + (r0 + x1) * C, __fmul_rn(d, __fmul_rn(hy, lx)));
-          atomicAdd(g + (r1 + x0) * C, __fmul_rn(d, __fmul_rn(ly, hx)));
-          atomicAdd(g + (r1 + x1) * C, __fmul_rn(d, __fmul_rn(ly, lx)));
+__device__ __forceinline__ LevelOf level_of_tile(const Tiling& tg, int tile) {
+  LevelOf o{0, 0, 1, 1, 1, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i)
+    if (i < tg.num && tile >= tg.base[i])
+      o = LevelOf{i, tg.base[i], tg.tiles_x[i], tg.h[i], tg.w[i], tg.scale[i]};
+  return o;
+}
+
+// A footprint's span of tiles on one axis, first | last << 16 (first >
+// last: no sample inside, an empty span), and whether it holds tile t.
+__device__ __forceinline__ int pack_span(int first, int last) { return first | last << 16; }
+__device__ __forceinline__ bool holds(int span, int t) {
+  return (span & 0xffff) <= t && t <= (span >> 16);
+}
+
+// One roi's footprint on one axis, in pixels: from the first tap of its
+// first sample inside the level to the second tap of its last ((1, 0): no
+// sample inside). The samples' coordinates and taps are monotone in j, so
+// every tap of weight lies in between; most rois lie inside, and the two
+// ends are the only samples placed. offs: the k samples' offsets.
+__device__ __forceinline__ int2 footprint(float first, float last, float scale, int extent,
+                                          float rcp, const float* offs, int k) {
+  int lo = 0, hi = k - 1;
+  Sample a = sample_at(first, last, scale, extent, rcp, offs[lo], 0, 1);
+  while (!a.inside && lo < k - 1)
+    a = sample_at(first, last, scale, extent, rcp, offs[++lo], 0, 1);
+  if (!a.inside) return make_int2(1, 0);
+  Sample z = sample_at(first, last, scale, extent, rcp, offs[hi], 0, 1);
+  while (!z.inside && hi > lo) z = sample_at(first, last, scale, extent, rcp, offs[--hi], 0, 1);
+  return make_int2(a.i0, z.i1);
+}
+
+__device__ __forceinline__ int span_of(int2 f, int size) {
+  return f.x > f.y ? pack_span(1, 0) : pack_span(f.x / size, f.y / size);
+}
+
+// counts (B, tiles), lists (B, tiles, N): the rois of each tile in index
+// order; table (B, N, 2k + 1): each roi's samples (k on y, then k on x) and
+// its footprint (y first, last, x first, last). The rois of image b go
+// through shared memory kBinThreads at a time; block x of the image writes
+// its share of their samples, places every roi's footprint (the image's
+// first block also stores them), then gives each of its warps a tile: the
+// lanes test 32 rois at once, and a ballot ranks those that meet the tile,
+// so the list comes out in roi order.
+__global__ void __launch_bounds__(kBinThreads)
+roi_align_backward_bin_kernel(Tiling tg, const float* __restrict__ rois,
+                              const int* __restrict__ levels, int N, int pooled, int s,
+                              int* __restrict__ counts, int* __restrict__ lists,
+                              int4* __restrict__ table) {
+  __shared__ float4 box[kBinThreads];
+  __shared__ int4 print[kBinThreads];  // level, y span, x span of each roi of the chunk
+  __shared__ float offs[kMaxSamples];  // the samples' offsets in bins
+  __shared__ float lscale[kMaxLevels];
+  __shared__ int lh[kMaxLevels], lw[kMaxLevels];
+
+  const int b = blockIdx.y, k = pooled * s, row = 2 * k + 1;
+  const float rcp = __frcp_rn((float)pooled);
+  if (threadIdx.x < k) offs[threadIdx.x] = sample_offset(threadIdx.x, s);
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i)
+    if (threadIdx.x == i) lscale[i] = tg.scale[i], lh[i] = tg.h[i], lw[i] = tg.w[i];
+  const int lane = threadIdx.x & 31, tiles = tg.tiles;
+  const int tile = blockIdx.x * (kBinThreads / 32) + (threadIdx.x >> 5);
+  const LevelOf at = level_of_tile(tg, tile);
+  const int t_rel = tile - at.first_tile, t_y = t_rel / at.tiles_x, t_x = t_rel - t_y * at.tiles_x;
+  int* list = lists + ((long long)b * tiles + tile) * N;
+  int count = 0;
+  for (int r0 = 0; r0 < N; r0 += kBinThreads) {
+    const int m = min(kBinThreads, N - r0);
+    if (threadIdx.x < m) {
+      const long long roi = (long long)b * N + r0 + threadIdx.x;
+      const float4 bx = reinterpret_cast<const float4*>(rois)[roi];
+      box[threadIdx.x] = bx;
+      print[threadIdx.x].x = clamp_level(levels[roi], tg.num);
+    }
+    __syncthreads();
+    int4* entries = table + ((long long)b * N + r0) * row;
+    for (int e = blockIdx.x * kBinThreads + threadIdx.x; e < m * 2 * k;
+         e += gridDim.x * kBinThreads) {
+      const int r = e / (2 * k), axis = (e - r * 2 * k) / k, j = e - r * 2 * k - axis * k;
+      const int l = print[r].x;
+      const float4 bx = box[r];
+      entries[r * row + axis * k + j] =
+          table_entry(sample_at(axis == 0 ? bx.y : bx.x, axis == 0 ? bx.w : bx.z, lscale[l],
+                                axis == 0 ? lh[l] : lw[l], rcp, offs[j], 0, 1));
+    }
+    if (threadIdx.x < m) {
+      const int l = print[threadIdx.x].x;
+      const float4 bx = box[threadIdx.x];
+      const int2 fy = footprint(bx.y, bx.w, lscale[l], lh[l], rcp, offs, k);
+      const int2 fx = footprint(bx.x, bx.z, lscale[l], lw[l], rcp, offs, k);
+      print[threadIdx.x] = make_int4(l, span_of(fy, kTileH), span_of(fx, tg.tile_w), 0);
+      if (blockIdx.x == 0) entries[threadIdx.x * row + 2 * k] = make_int4(fy.x, fy.y, fx.x, fx.y);
+    }
+    __syncthreads();
+    if (tile < tiles) {
+      for (int r = lane; r < ((m + 31) & ~31); r += 32) {
+        bool meets = false;
+        if (r < m) {
+          const int4 f = print[r];
+          meets = f.x == at.level && holds(f.y, t_y) && holds(f.z, t_x);
         }
+        const unsigned ballot = __ballot_sync(0xffffffffu, meets);
+        if (meets) list[count + __popc(ballot & ((1u << lane) - 1))] = r0 + r;
+        count += __popc(ballot);
       }
+    }
+    __syncthreads();
+  }
+  if (tile < tiles && lane == 0) counts[(long long)b * tiles + tile] = count;
+}
+
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void copy_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// dF's elements as the kernel writes them: float32, or bf16 rounded once
+// to nearest even; one, or four consecutive along x.
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(bf16_bits* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void store_four(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store_four(bf16_bits* p, float4 v) {
+  const unsigned lo = __bfloat16_as_ushort(__float2bfloat16_rn(v.x)) |
+                      (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.y)) << 16;
+  const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(v.z)) |
+                      (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.w)) << 16;
+  *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+}
+
+constexpr int kStages = 4;       // K8's ring of rois in flight: dOut slices and sample tables
+constexpr int kListChunk = 1024;  // a tile's rois staged in shared memory at a time
+
+// K8's shared memory for `slice` channels of tiles tile_w wide: a ring of
+// kStages dOut slices (pitch pooled^2 | 1, odd, so a warp's 32 channels fall
+// in 32 banks) and of sample tables (2k + 1 entries); two buffers of Ax and
+// Ay; then, over them, the finished tile (pitch kTileH * tile_w + 1).
+struct BackLayout {
+  int dout, table, ax, ay, total;
+  __host__ __device__ BackLayout(int slice, int tile_w, int pooled, int s) {
+    const int k = pooled * s;
+    dout = 0;
+    table = dout + align16(kStages * slice * ((pooled * pooled) | 1) * 4);
+    ax = table + kStages * (2 * k + 1) * 16;
+    ay = ax + align16(2 * pooled * tile_w * 4);
+    const int pipeline = ay + 2 * pooled * kTileH * 4;
+    const int staged = slice * (kTileH * tile_w + 1) * 4;
+    total = pipeline > staged ? pipeline : staged;
+  }
+};
+
+// Issues the copies of one roi's dOut slice (`live` channels x `bins`, one
+// contiguous run at src) into dst at pitch dpitch: 16 bytes a copy where the
+// run lands unpadded (bins odd) and aligned (`wide`), else 4.
+__device__ __forceinline__ void copy_dout(float* dst, const float* src, int live, int bins,
+                                          int dpitch, bool wide) {
+  if (wide) {
+    for (int i = threadIdx.x; i < live * bins / 4; i += blockDim.x)
+      copy_async16(dst + 4 * i, src + 4 * i);
+    return;
+  }
+  for (int i = threadIdx.x; i < live * bins; i += blockDim.x) {
+    const int c = i / bins;
+    copy_async(dst + c * dpitch + i - c * bins, src + i);
+  }
+}
+
+__device__ __forceinline__ void copy_table(int4* dst, const int4* src, int entries) {
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) copy_async16(dst + i, src + i);
+}
+
+// A roi's weights restricted to the tile at (y0, x0), from its sample table
+// e (k y samples, then k x samples): ax[px][x] and ay[py][y] sum the taps of
+// bin px's (py's) samples that fall on x0 + x (y0 + y).
+__device__ __forceinline__ void build_weights(const int4* e, float* ax, float* ay, int k,
+                                              int pooled, int s, int tw, int y0, int x0) {
+  for (int i = threadIdx.x; i < pooled * (tw + kTileH); i += blockDim.x) {
+    const bool on_x = i < pooled * tw;
+    const int width = on_x ? tw : kTileH, at = on_x ? i : i - pooled * tw;
+    const int p = at / width, q = at - p * width, tap = (on_x ? x0 : y0) + q;
+    const int4* axis = e + (on_x ? k : 0);
+    float a = 0.0f;
+    for (int j = p * s; j < p * s + s; ++j) {
+      const int4 t = axis[j];
+      if (t.x == tap) a += __int_as_float(t.z);
+      if (t.y == tap) a += __int_as_float(t.w);
+    }
+    (on_x ? ax : ay)[p * width + q] = a;
+  }
+}
+
+// One roi's share of a thread's sums, channel c (d: its dOut, pooled x
+// pooled) at column x of the tile at (y0, x0): for each row y, the sum over
+// py of ay[py][y] * v[py], v[py] = sum over px of dOut_c[py][px] *
+// ax[px][x]. fp: the roi's footprint (y first, last, x first, last); the
+// rows and columns it misses hold zero weights and are skipped, a column for
+// the whole warp. The detector's pooled size, 7, is compiled in (P = 7);
+// any other takes P = 0 and unrolls to kMaxPooled.
+template <int P>
+__device__ __forceinline__ void add_roi(float (&acc)[kTileH], const float* ax, const float* ay,
+                                        int4 fp, const float* d, int pooled, int tw, int x,
+                                        int y0, int x0, bool live) {
+  constexpr int kP = P > 0 ? P : kMaxPooled;
+  if (P > 0) pooled = P;
+  if (x0 + x < fp.z || x0 + x > fp.w) return;
+  float a[kP];
+  bool any = false;
+#pragma unroll
+  for (int px = 0; px < kP; ++px) {
+    a[px] = px < pooled ? ax[px * tw + x] : 0.0f;
+    any |= a[px] != 0.0f;
+  }
+  if (!any || !live) return;  // `any` is the same across the warp
+  float v[kP];
+#pragma unroll
+  for (int py = 0; py < kP; ++py) v[py] = 0.0f;
+#pragma unroll
+  for (int px = 0; px < kP; ++px) {
+    if (a[px] == 0.0f) continue;
+#pragma unroll
+    for (int py = 0; py < kP; ++py)
+      if (py < pooled) v[py] = __fmaf_rn(d[py * pooled + px], a[px], v[py]);
+  }
+  const int r0 = fp.x - y0, r1 = fp.y - y0;  // the footprint's rows in the tile
+  const float4* ay4 = reinterpret_cast<const float4*>(ay);
+#pragma unroll
+  for (int q = 0; q < kTileH / 4; ++q) {
+    if (4 * q > r1 || 4 * q + 3 < r0) continue;
+#pragma unroll
+    for (int py = 0; py < kP; ++py) {
+      if (py >= pooled) break;
+      const float4 w = ay4[py * (kTileH / 4) + q];
+      acc[4 * q] = __fmaf_rn(w.x, v[py], acc[4 * q]);
+      acc[4 * q + 1] = __fmaf_rn(w.y, v[py], acc[4 * q + 1]);
+      acc[4 * q + 2] = __fmaf_rn(w.z, v[py], acc[4 * q + 2]);
+      acc[4 * q + 3] = __fmaf_rn(w.w, v[py], acc[4 * q + 3]);
     }
   }
 }
 
-template <typename T>
-bool fill_levels(LevelsT<T>& lv, const void* const* ptrs, const int* heights, const int* widths,
-                 const float* scales, int num_levels) {
-  lv.num = num_levels;
-  for (int i = 0; i < kMaxLevels; ++i) {
-    const bool used = i < num_levels;
-    lv.feat[i] = used ? static_cast<T*>(const_cast<void*>(ptrs[i])) : nullptr;
-    lv.h[i] = used ? heights[i] : 0;
-    lv.w[i] = used ? widths[i] : 0;
-    lv.scale[i] = used ? scales[i] : 0.0f;
-    if (used && (lv.h[i] < 1 || lv.w[i] < 1)) return false;
-  }
-  return true;
-}
+// dF of one (channel slice, tile, image): blockIdx = (slice, tile, image).
+// A warp owns one column x of the tile and 32 channels of the slice, a
+// thread one channel; the block has tile_w x slice / 32 warps. Roi j of the
+// list: its dOut slice and its table in ring slot j % kStages, copied
+// kStages - 1 rois ahead (the table one roi earlier still, for the
+// weights), its weights in buffer j & 1. P: add_roi's.
+template <typename T, int P>
+__global__ void __launch_bounds__(kBackThreads)
+roi_align_backward_kernel(Strided<T*> out, Tiling tg, const float* __restrict__ dout,
+                          const int* __restrict__ counts, const int* __restrict__ lists,
+                          const int4* __restrict__ table, int N, int C, int pooled, int s,
+                          int slice) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int ids[kListChunk];
+  const int k = pooled * s, row = 2 * k + 1, bins = pooled * pooled, dpitch = bins | 1;
+  const int tw = tg.tile_w, b = blockIdx.z, tile = blockIdx.y;
+  const BackLayout lay(slice, tw, pooled, s);
+  float* dbuf = reinterpret_cast<float*>(smem + lay.dout);
+  int4* tbuf = reinterpret_cast<int4*>(smem + lay.table);
+  float* axs = reinterpret_cast<float*>(smem + lay.ax);
+  float* ays = reinterpret_cast<float*>(smem + lay.ay);
 
-bool valid_launch(int num_levels, int B, int N, int C, int pooled, int sampling_ratio) {
-  return num_levels >= 1 && num_levels <= kMaxLevels && B >= 1 && N >= 1 && C >= 1 &&
-         pooled >= 1 && sampling_ratio >= 1 && pooled * sampling_ratio <= kMaxSamples &&
-         B <= 65535 && N <= 65535 && sizeof(float) * kChunk * pooled * pooled <= 48 * 1024;
+  const LevelOf lv = level_of_tile(tg, tile);
+  const int rel = tile - lv.first_tile, ty = rel / lv.tiles_x;
+  const int y0 = ty * kTileH, x0 = (rel - ty * lv.tiles_x) * tw;
+  const int c0 = blockIdx.x * slice, live = min(slice, C - c0);
+  const int warp = threadIdx.x >> 5;
+  const int x = warp % tw, c = (warp / tw) * 32 + (threadIdx.x & 31);
+  const long long cell = (long long)b * tg.tiles + tile;
+  const int count = counts[cell];
+  const int* list = lists + cell * N;
+  const float* dsrc = dout + ((long long)b * N * C + c0) * bins;  // + n * C * bins
+  const int4* tsrc = table + (long long)b * N * row;              // + n * row
+  const bool wide = dpitch == bins && (C * bins) % 4 == 0 && (live * bins) % 4 == 0 &&
+                    (reinterpret_cast<unsigned long long>(dout) & 15) == 0;
+
+  float acc[kTileH];
+#pragma unroll
+  for (int y = 0; y < kTileH; ++y) acc[y] = 0.0f;
+
+  // the list, kListChunk rois at a time in shared memory; within a chunk,
+  // group g holds roi g's dOut and roi g + 1's table (group 0 also roi 0's)
+  for (int h0 = 0; h0 < count; h0 += kListChunk) {
+    const int m = min(kListChunk, count - h0);
+    __syncthreads();  // the last chunk's buffers are read
+    for (int j = threadIdx.x; j < m; j += blockDim.x) ids[j] = __ldg(list + h0 + j);
+    __syncthreads();
+    copy_table(tbuf, tsrc + (long long)ids[0] * row, row);
+    for (int g = 0; g < kStages - 1; ++g) {
+      if (g < m) copy_dout(dbuf + g * slice * dpitch, dsrc + (long long)ids[g] * C * bins, live,
+                           bins, dpitch, wide);
+      if (g + 1 < m) copy_table(tbuf + (g + 1) * row, tsrc + (long long)ids[g + 1] * row, row);
+      copy_commit();
+    }
+    copy_wait_group<kStages - 2>();  // group 0
+    __syncthreads();
+    build_weights(tbuf, axs, ays, k, pooled, s, tw, y0, x0);
+    for (int i = 0; i < m; ++i) {
+      // roi i's footprint, from its table (group i - 1, or group 0 for roi 0,
+      // seen since the last barrier); read before the barrier below, after
+      // which roi i + kStages's table is copied over it
+      const int4 fp = tbuf[(i % kStages) * row + 2 * k];
+      copy_wait_group<kStages - 2>();  // group i: roi i's dOut, roi i + 1's table
+      __syncthreads();  // roi i's weights; every read of roi i - 1's buffers and roi i's table done
+      const int g = i + kStages - 1;
+      if (g < m)
+        copy_dout(dbuf + (g % kStages) * slice * dpitch, dsrc + (long long)ids[g] * C * bins,
+                  live, bins, dpitch, wide);
+      if (g + 1 < m)
+        copy_table(tbuf + ((g + 1) % kStages) * row, tsrc + (long long)ids[g + 1] * row, row);
+      copy_commit();
+      if (i + 1 < m)
+        build_weights(tbuf + ((i + 1) % kStages) * row, axs + ((i + 1) & 1) * pooled * tw,
+                      ays + ((i + 1) & 1) * pooled * kTileH, k, pooled, s, tw, y0, x0);
+      add_roi<P>(acc, axs + (i & 1) * pooled * tw, ays + (i & 1) * pooled * kTileH, fp,
+                 dbuf + (i % kStages) * slice * dpitch + c * dpitch, pooled, tw, x, y0, x0,
+                 c < live);
+    }
+    copy_wait_group<0>();
+  }
+
+  // the tile through shared memory (a tile no roi reaches: zeros), then out once
+  const int area = kTileH * tw, pitch = area + 1;
+  float* staged = reinterpret_cast<float*>(smem);
+  if (count > 0) {
+    __syncthreads();
+#pragma unroll
+    for (int y = 0; y < kTileH; ++y) staged[c * pitch + y * tw + x] = acc[y];
+    __syncthreads();
+  }
+  const float inv = 1.0f / (float)(s * s);
+  long long sc = 0, sb = 0;
+  int sy = 0, sx = 0;
+  T* feat = nullptr;
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i) {  // static indices, as in level_of_tile
+    if (i != lv.level) continue;
+    sc = out.sc[i], sb = out.sb[i], sy = out.sy[i], sx = out.sx[i];
+    feat = out.feat[i];
+  }
+  const int H = lv.h, W = lv.w;
+  T* base = feat + b * sb + c0 * sc;
+  if (sx == 1 && (W | sy | tw) % 4 == 0 && sc % 4 == 0 && sb % 4 == 0 &&
+      (reinterpret_cast<unsigned long long>(feat) & 15) == 0) {
+    // four consecutive pixels of a row a thread, threads along x
+    const int quads = tw / 4;
+    for (int i = threadIdx.x; i < live * kTileH * quads; i += blockDim.x) {
+      const int cc = i / (kTileH * quads), p = i - cc * kTileH * quads;
+      const int yy = p / quads, xx = 4 * (p - yy * quads);
+      if (y0 + yy >= H || x0 + xx >= W) continue;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (count > 0) {
+        const float* src = staged + cc * pitch + yy * tw + xx;
+        v = make_float4(__fmul_rn(src[0], inv), __fmul_rn(src[1], inv), __fmul_rn(src[2], inv),
+                        __fmul_rn(src[3], inv));
+      }
+      store_four(base + cc * sc + (y0 + yy) * sy + x0 + xx, v);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < live * area; i += blockDim.x) {
+    const int cc = i / area, p = i - cc * area, yy = p / tw, xx = p - yy * tw;
+    if (y0 + yy < H && x0 + xx < W)
+      store_one(base + cc * sc + (y0 + yy) * sy + (x0 + xx) * sx,
+                count > 0 ? __fmul_rn(staged[cc * pitch + p], inv) : 0.0f);
+  }
 }
 
 // strides: num_levels x (b, c, y, x) element strides. False where a level is
 // empty or a plane's pixel offsets do not fit 32 bits.
-template <typename T>
-bool fill_strided(StridedLevels<T>& lv, const void* const* ptrs, const int* heights,
+template <typename P>
+bool fill_strided(Strided<P>& lv, const void* const* ptrs, const int* heights,
                   const int* widths, const float* scales, const long long* strides,
                   int num_levels) {
   lv.num = num_levels;
   for (int i = 0; i < kMaxLevels; ++i) {
     const bool used = i < num_levels;
-    lv.feat[i] = used ? static_cast<const T*>(ptrs[i]) : nullptr;
+    lv.feat[i] = used ? static_cast<P>(const_cast<void*>(ptrs[i])) : nullptr;
     lv.h[i] = used ? heights[i] : 0;
     lv.w[i] = used ? widths[i] : 0;
     lv.scale[i] = used ? scales[i] : 0.0f;
@@ -713,23 +1108,172 @@ extern "C" void roi_align_forward_last_plan(int* out) {
   for (int i = 0; i < 5; ++i) out[i] = g_last_plan[i];
 }
 
-// K8. grads: host array of num_levels device pointers, each a zeroed NHWC
-// (B, H_l, W_l, C) float32 buffer that receives dF; heights, widths, scales,
-// rois and levels as for the forward; dout (B, N, C, pooled, pooled) float32.
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int roi_align_backward_f32(void* const* grads, const int* heights,
-                                      const int* widths, const float* scales, int num_levels,
-                                      const void* rois, const void* levels, const void* dout,
-                                      int B, int N, int C, int pooled, int sampling_ratio,
-                                      void* stream) {
-  GradLevels lv;
-  if (!valid_launch(num_levels, B, N, C, pooled, sampling_ratio) ||
-      !fill_levels(lv, grads, heights, widths, scales, num_levels))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kChunk * pooled * pooled;
-  const dim3 grid((C + kChunk - 1) / kChunk, N, B);
-  roi_align_backward_kernel<<<grid, kChunk, smem, static_cast<cudaStream_t>(stream)>>>(
-      lv, static_cast<const float*>(rois), static_cast<const int*>(levels),
-      static_cast<const float*>(dout), N, C, pooled, sampling_ratio);
+namespace {
+
+// K8's plan: channels of a block, tile width, threads, dynamic shared
+// memory bytes.
+struct BackPlan {
+  int slice;
+  int tile_w;
+  int threads;
+  int smem;
+};
+
+// The plan of the last K8 launch, its grid's channel slices and tiles.
+int g_last_back_plan[7] = {0, 0, 0, 0, 0, 0, 0};
+
+// K8's plan for dF elements of `itemsize` bytes (2 or 4) at pooled x s, the
+// one owner of its layout: 32 channels a block (a warp's lanes), a tile row
+// of dF one 32-byte sector, a warp a tile column, and BackLayout's bytes.
+// ops/roi_align_kernel.py::backward_launch_plan mirrors it (the card tests
+// hold the two equal through roi_align_backward_plan). smem 0: it does not
+// fit a block beside the static roi list.
+BackPlan back_plan(int pooled, int s, int itemsize) {
+  BackPlan plan{32, 32 / itemsize, 0, 0};
+  plan.threads = plan.slice * plan.tile_w;
+  const int smem = BackLayout(plan.slice, plan.tile_w, pooled, s).total;
+  plan.smem = smem + kListChunk * (int)sizeof(int) <= 232448 ? smem : 0;
+  return plan;
+}
+
+// True where the caller's plan (slice, tile_w, threads, smem) is K8's own.
+bool plan_is_own(const int* plan, int pooled, int s, int itemsize) {
+  const BackPlan own = back_plan(pooled, s, itemsize);
+  return own.smem > 0 && plan[0] == own.slice && plan[1] == own.tile_w &&
+         plan[2] == own.threads && plan[3] == own.smem;
+}
+
+// False where a level is empty or the tiles of an image exceed the grid.
+bool fill_tiling(Tiling& tg, const int* heights, const int* widths, const float* scales,
+                 int num_levels, int tile_w) {
+  tg.num = num_levels;
+  tg.tile_w = tile_w;
+  tg.base[0] = 0;
+  for (int i = 0; i < kMaxLevels; ++i) {
+    const bool used = i < num_levels;
+    tg.h[i] = used ? heights[i] : 0;
+    tg.w[i] = used ? widths[i] : 0;
+    tg.scale[i] = used ? scales[i] : 0.0f;
+    tg.tiles_x[i] = used ? (tg.w[i] + tile_w - 1) / tile_w : 0;
+    const long long tiles = used ? (long long)tg.tiles_x[i] * ((tg.h[i] + kTileH - 1) / kTileH) : 0;
+    if (used && (tg.h[i] < 1 || tg.w[i] < 1 || tg.base[i] + tiles > 65535)) return false;
+    tg.base[i + 1] = tg.base[i] + (int)tiles;
+  }
+  tg.tiles = tg.base[num_levels];
+  return true;
+}
+
+int launch_bins(const Tiling& tg, const void* rois, const void* levels, int B, int N, int pooled,
+                int s, void* counts, void* lists, void* table, cudaStream_t stream) {
+  const dim3 grid((tg.tiles + kBinThreads / 32 - 1) / (kBinThreads / 32), B);
+  roi_align_backward_bin_kernel<<<grid, kBinThreads, 0, stream>>>(
+      tg, static_cast<const float*>(rois), static_cast<const int*>(levels), N, pooled, s,
+      static_cast<int*>(counts), static_cast<int*>(lists), static_cast<int4*>(table));
   return (int)cudaGetLastError();
+}
+
+bool valid_backward(int num_levels, int B, int N, int pooled, int s) {
+  return num_levels >= 1 && num_levels <= kMaxLevels && B >= 1 && B <= 65535 && N >= 1 &&
+         pooled >= 1 && pooled <= kMaxPooled && s >= 1 && pooled * s <= kMaxSamples;
+}
+
+template <typename T>
+int launch_backward(void* const* grads, const long long* strides, const void* dout, int C,
+                    const int* heights, const int* widths, const float* scales, int num_levels,
+                    const void* rois, const void* levels, int B, int N, int pooled, int s,
+                    const int* plan_in, void* counts, void* lists, void* table, void* stream) {
+  const BackPlan plan = back_plan(pooled, s, (int)sizeof(T));
+  Strided<T*> out;
+  Tiling tg;
+  if (!valid_backward(num_levels, B, N, pooled, s) || C < 1 ||
+      !plan_is_own(plan_in, pooled, s, (int)sizeof(T)) ||
+      !fill_strided(out, const_cast<const void* const*>(grads), heights, widths, scales, strides,
+                    num_levels) ||
+      !fill_tiling(tg, heights, widths, scales, num_levels, plan.tile_w))
+    return (int)cudaErrorInvalidValue;
+  const auto cs = static_cast<cudaStream_t>(stream);
+  int err = launch_bins(tg, rois, levels, B, N, pooled, s, counts, lists, table, cs);
+  if (err != 0) return err;
+  // the detector's pooled size, 7, compiled in; any other at run time
+  const auto kernel =
+      pooled == 7 ? roi_align_backward_kernel<T, 7> : roi_align_backward_kernel<T, 0>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)  // the static roi list comes on top of these bytes
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((C + plan.slice - 1) / plan.slice, tg.tiles, B);
+  kernel<<<grid, plan.threads, plan.smem, cs>>>(
+      out, tg, static_cast<const float*>(dout), static_cast<const int*>(counts),
+      static_cast<const int*>(lists), static_cast<const int4*>(table), N, C, pooled, s,
+      plan.slice);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    const int last[7] = {plan.slice, kTileH, plan.tile_w, plan.threads, plan.smem, (int)grid.x,
+                         (int)grid.y};
+    for (int i = 0; i < 7; ++i) g_last_back_plan[i] = last[i];
+  }
+  return (int)e;
+}
+
+}  // namespace
+
+// K8's binning and table alone. heights, widths, scales: host arrays of the
+// levels'; rois (B, N, 4) float32 and levels (B, N) int32 on the device;
+// plan: host array (slice, tile_w, threads, smem) from backward_launch_plan,
+// refused unless it is back_plan's (tile_w 8: float32 dF, 16: bf16); counts
+// (B, tiles) int32, lists (B, tiles, N) int32 and table (B, N, 2k + 1) int4
+// (k = pooled * sampling_ratio), device scratch that receives the bins. Returns the launch's cudaError_t (0 on success).
+#define BACKWARD_ARGS                                                                     \
+  const int *heights, const int *widths, const float *scales, int num_levels,             \
+      const void *rois, const void *levels, int B, int N, int pooled, int sampling_ratio,  \
+      const int *plan, void *counts, void *lists, void *table
+#define BACKWARD_PASS                                                                  \
+  heights, widths, scales, num_levels, rois, levels, B, N, pooled, sampling_ratio, plan, \
+      counts, lists, table
+
+extern "C" int roi_align_backward_bins(BACKWARD_ARGS, void* stream) {
+  Tiling tg;
+  if (!valid_backward(num_levels, B, N, pooled, sampling_ratio) ||
+      !(plan[1] == 8 || plan[1] == 16) ||
+      !plan_is_own(plan, pooled, sampling_ratio, 32 / plan[1]) ||
+      !fill_tiling(tg, heights, widths, scales, num_levels, plan[1]))
+    return (int)cudaErrorInvalidValue;
+  return launch_bins(tg, rois, levels, B, N, pooled, sampling_ratio, counts, lists, table,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K8: the binning, then the tile kernel. grads: host array of num_levels
+// device pointers, each dF's level (B, C, H_l, W_l) in any layout, float32
+// (_f32) or bfloat16 (_bf16), written in full; strides: host array of
+// num_levels x (b, c, y, x) element strides; dout (B, N, C, pooled, pooled)
+// float32; the rest as for roi_align_backward_bins.
+extern "C" int roi_align_backward_f32(void* const* grads, const long long* strides,
+                                      const void* dout, int C, BACKWARD_ARGS, void* stream) {
+  return launch_backward<float>(grads, strides, dout, C, BACKWARD_PASS, stream);
+}
+
+extern "C" int roi_align_backward_bf16(void* const* grads, const long long* strides,
+                                       const void* dout, int C, BACKWARD_ARGS, void* stream) {
+  return launch_backward<bf16_bits>(grads, strides, dout, C, BACKWARD_PASS, stream);
+}
+
+// K8's own plan for dF elements of `itemsize` bytes at pooled x
+// sampling_ratio: out[5] = (slice, tile_h, tile_w, threads, smem). Returns
+// cudaErrorInvalidValue where K8 does not take it or it does not fit a
+// block, else 0.
+extern "C" int roi_align_backward_plan(int pooled, int sampling_ratio, int itemsize, int* out) {
+  if (!(itemsize == 2 || itemsize == 4) || !valid_backward(1, 1, 1, pooled, sampling_ratio))
+    return (int)cudaErrorInvalidValue;
+  const BackPlan plan = back_plan(pooled, sampling_ratio, itemsize);
+  if (plan.smem == 0) return (int)cudaErrorInvalidValue;
+  const int own[5] = {plan.slice, kTileH, plan.tile_w, plan.threads, plan.smem};
+  for (int i = 0; i < 5; ++i) out[i] = own[i];
+  return 0;
+}
+
+// The last successful K8 launch's plan and grid: out[7] = (slice, tile_h,
+// tile_w, threads, smem, channel slices, tiles of an image).
+extern "C" void roi_align_backward_last_plan(int* out) {
+  for (int i = 0; i < 7; ++i) out[i] = g_last_back_plan[i];
 }

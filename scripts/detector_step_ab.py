@@ -7,11 +7,11 @@ builds its checkout's kernels and writes its fixture detection set:
     python3 scripts/detector_step_ab.py A_ROOT B_ROOT
 
 Prints each turn's `[detector_train_step_profile]` line after its label and
-checkout. The profile's `backward_split_ms` takes 0 for K8's NCHW copy here
-(chip_smoke.py measures that copy in its times phase), so its "rest" holds
-the copy.
+checkout. Where a checkout's profile still takes K8's NCHW copy time (before
+K8 wrote dF in place), it is given 0, so its "rest" holds the copy.
 """
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +27,9 @@ def one_turn(root: Path) -> None:
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.phase_build()
     train_set, _ = chip_smoke.detection_sets(root / "build" / "chip_smoke_detection")
-    chip_smoke.phase_detector_train_step_profile(torch.device("cuda"), train_set, 0.0)
+    profile = chip_smoke.phase_detector_train_step_profile
+    copy_ms = (0.0,) if "k8_copy_ms" in inspect.signature(profile).parameters else ()
+    profile(torch.device("cuda"), train_set, *copy_ms)
 
 
 def main() -> int:

@@ -2,8 +2,8 @@
 windowed RoIAlign's autograd Function (`roi_align_windowed_trainable`, K9
 forward and K8 backward) against the JAX package's, on the CPU.
 
-K8 sums the float32 cotangent with float32 interpolation weights into
-float32 buffers and rounds dF to bf16 once. Its plain version, which a CPU
+K8 sums the float32 cotangent with float32 interpolation weights in
+float32 and rounds each element of dF to bf16 once, where it writes it. Its plain version, which a CPU
 tensor runs, is the float32 backward cast to bf16, so the bf16 mode equals
 the float32 mode rounded, bit for bit. JAX's versions round earlier:
 
@@ -289,11 +289,31 @@ def test_k8_refuses_another_gradient_dtype(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 4, 6, 8), (3, 1, 1, 16)])
-def test_nchw_copy_is_one_contiguous_copy_in_the_dtype(shape, dtype):
-    """K8's NHWC float32 buffers leave as contiguous NCHW in dF's dtype, for
-    every level shape (a 1 x 1 level and a single image included)."""
-    nhwc = torch.randn(shape, generator=torch.Generator().manual_seed(0))
-    out = rk.nchw_copy(nhwc, dtype)
-    assert out.dtype == dtype and out.is_contiguous() and out.data_ptr() != nhwc.data_ptr()
-    assert out.shape == (shape[0], shape[3], shape[1], shape[2])
-    assert torch.equal(out, nhwc.permute(0, 3, 1, 2).to(dtype))
+def test_k8_plain_on_odd_level_shapes_matches_jax_gather_vjp(shape, dtype):
+    """K8's plain version, which a CPU tensor runs, on one level of an odd
+    shape `(B, H, W, C)` (a 1 x 1 level and a single image included): dF is
+    contiguous NCHW in dF's dtype and equals JAX's gather VJP of the same
+    float32 RoIAlign, float32 within F32_GRAD_RTOL x max |ref|, bf16 within
+    one bf16 ulp of max |ref| of it rounded once. The kernel is held on such
+    shapes by `tests/test_torch_kernels_gpu.py` (`K8_ODD_LEVELS`)."""
+    batch, height, width, channels = shape
+    rng = np.random.RandomState(height * 100 + width)
+    grad = rng.standard_normal((batch, 3, channels, 7, 7)).astype(np.float32)
+    corners = rng.uniform(0, 4, (batch, 3, 2)) * [width, height]
+    rois = np.concatenate([corners, corners + 8.0], -1).astype(np.float32)
+    levels = np.zeros((batch, 3), np.int32)
+    out = rk.roi_align_batched_backward(torch.from_numpy(grad), torch.from_numpy(rois),
+                                        torch.from_numpy(levels), [(height, width)], [4],
+                                        dtype=dtype)[0]
+    assert out.dtype == dtype and out.is_contiguous()
+    assert out.shape == (batch, channels, height, width)
+    want = _jax_vjp(lambda fs: jax.vmap(lambda f, r, lv: jax_multilevel_roi_align([f], r, lv, [4]))(
+        fs[0], jnp.asarray(rois), jnp.asarray(levels)),
+        [jnp.zeros((batch, channels, height, width), jnp.float32)], grad)
+    if dtype == torch.float32:
+        _assert_levels_close([out], want, F32_GRAD_RTOL)
+    else:
+        w16 = torch.from_numpy(want[0]).to(torch.bfloat16).float().numpy()
+        scale = float(np.abs(w16).max())
+        assert float(np.abs(out.float().numpy() - w16).max()) <= _bf16_ulp(scale)
+    assert float(np.abs(want[0]).max()) > 0
