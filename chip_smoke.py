@@ -52,6 +52,10 @@ MAIN_PATH_VIDEOS = 64
 TRAIN_BATCH, RAGGED_TRAIN_BATCH = 16, 13
 LSTM_LAYERS = {"att_lstm": (90, 256), "video_lstm": (6, 512)}
 TRAIN_VIDEOS, DEV_VIDEOS, TRAIN_EPOCHS = 64, 16, 2
+# K4's batch in the eval step, min(inference_batch_size, max(len(train),
+# len(dev))) (train/loop.py): 64 on the train path's 64 + 16 fixture videos,
+# 400 at the shipped configs/training_config.json with a real dataset
+EVAL_BATCHES = (64, 400)
 ATOL = 1e-4          # kernel vs plain, float32 with sums in another order
 # gradients summed over B x T terms (dW_hh, dW_ih, dx): 1e-4 relative to
 # their largest reference value, at least 1e-4 absolute
@@ -208,9 +212,14 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line:
                 print("  " + line.strip(), flush=True)
     for layer, (_, hidden) in LSTM_LAYERS.items():
-        plan = launch_plan(hidden)
-        log("plan", layer=layer, hidden=hidden, kernel="K2/K4", units_per_block=plan["units"],
-            blocks=plan["blocks"], smem_bytes=plan["smem"])
+        for batch in (TRAIN_BATCH, RAGGED_TRAIN_BATCH, *EVAL_BATCHES):
+            plan = launch_plan(hidden, batch=batch)
+            log("plan", layer=layer, hidden=hidden, kernel="K2/K4", batch=batch,
+                video_groups=plan["groups"], unit_slices=plan["slices"],
+                videos_per_thread=plan["tile"], k_splits=plan["splits"],
+                rows_staged=plan["stage"], units_per_block=plan["units"],
+                videos_per_group=plan["videos"], blocks=plan["blocks"],
+                smem_bytes=plan["smem"], passes=plan["passes"])
         for batch in (TRAIN_BATCH, RAGGED_TRAIN_BATCH):
             plan = launch_plan(hidden, backward=True, batch=batch)
             log("plan", layer=layer, hidden=hidden, kernel="K3", batch=batch,
@@ -415,9 +424,12 @@ def compare_lstm(layer, batch, weights, device):
     xproj = torch.matmul(x.transpose(0, 1), w_ih).contiguous()
     hs, cs = lstm_scan_forward(xproj, w_hh)
     hs_only = lstm_scan_hs(xproj, w_hh)
+    hs_again, cs_again = lstm_scan_forward(xproj, w_hh)
     torch.cuda.synchronize()
     want_hs, want_cs = lstm_scan_forward_reference(xproj, w_hh)
     assert torch.isfinite(hs).all() and torch.isfinite(cs).all(), "non-finite K2 output"
+    assert torch.equal(hs, hs_again) and torch.equal(cs, cs_again), "two K2 calls differ"
+    assert torch.equal(hs_only, hs), "K4's hs is not K2's"
 
     h_prev = torch.cat([torch.zeros_like(want_hs[:1]), want_hs[:-1]])
     c_prev = torch.cat([torch.zeros_like(want_cs[:1]), want_cs[:-1]])
@@ -457,12 +469,31 @@ def compare_lstm(layer, batch, weights, device):
             "K4": errs["hs_only"]}
 
 
+def compare_k4(layer, batch, weights, device):
+    """K4 alone at an eval batch against the plain loop; two calls bitwise
+    equal."""
+    from objectpermanence_tpu_torch.ops.lstm_scan import lstm_scan_forward_reference, lstm_scan_hs
+    x, w_ih, w_hh, _ = lstm_case(layer, batch, weights, device)
+    xproj = torch.matmul(x.transpose(0, 1), w_ih).contiguous()
+    hs, hs_again = lstm_scan_hs(xproj, w_hh), lstm_scan_hs(xproj, w_hh)
+    torch.cuda.synchronize()
+    want_hs, _ = lstm_scan_forward_reference(xproj, w_hh)
+    err = max_err(hs, want_hs)
+    log("lstm_vs_plain", layer=layer, batch=batch, frames=FRAMES, kernel="K4",
+        max_abs_err_hs_only=err, bitwise_repeat=torch.equal(hs, hs_again))
+    assert torch.isfinite(hs).all() and err <= ATOL, f"K4 disagrees with plain ({layer}, B={batch})"
+    assert torch.equal(hs, hs_again), f"two K4 calls differ ({layer}, B={batch})"
+    return err
+
+
 def phase_lstm_vs_plain(weights, device):
     worst = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
     for layer in LSTM_LAYERS:
         for batch in (TRAIN_BATCH, RAGGED_TRAIN_BATCH):
             for tag, err in compare_lstm(layer, batch, weights, device).items():
                 worst[tag] = max(worst[tag], err)
+        for batch in EVAL_BATCHES:
+            worst["K4"] = max(worst["K4"], compare_k4(layer, batch, weights, device))
     return worst
 
 
@@ -664,14 +695,39 @@ def lstm_bounds(batch, frames, hidden):
     return out
 
 
+def cudnn_lstm(w_ih, w_hh, device):
+    """Yardstick only: cuDNN's nn.LSTM(bias=False) with the layer's weights."""
+    cudnn = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0], bias=False, batch_first=True).to(device)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_ih.t())
+        cudnn.weight_hh_l0.copy_(w_hh.t())
+    return cudnn
+
+
+def time_in_turns(kernel, plain, library, bound):
+    """kernel, plain and library in turns plain, kernel, library, kernel,
+    library, plain, beside the bound: a row of the kernels line."""
+    plain_a = time_ms(plain, iters=2, warmup=1)
+    kernel_a = time_ms(kernel, iters=20)
+    library_a = time_ms(library, iters=20)
+    kernel_b = time_ms(kernel, iters=20)
+    library_b = time_ms(library, iters=20)
+    plain_b = time_ms(plain, iters=2, warmup=1)
+    return {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
+            "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
+            "library_ms": (library_a + library_b) / 2, "library_ms_runs": [library_a, library_b],
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
 def time_lstm_layer(layer, weights, device):
     """K2, K3, K4, their plain versions and cuDNN's nn.LSTM(bias=False) at
-    the training batch, in turns: plain, kernel, library, kernel, library,
-    plain. K2 and K4's yardstick is cuDNN's forward without a graph; K3's is
-    cuDNN's backward alone, `torch.autograd.grad` through one kept forward
-    graph (it also computes dx and dW_ih). K3's row adds `layer_ms`, K3 with
-    `_LSTMScanFused.backward`'s two einsums for dW_ih and dx, the
-    like-for-like figure."""
+    the training batch, and K4 at the eval batches (`EVAL_BATCHES`), each in
+    turns (`time_in_turns`). K2 and K4's yardstick is cuDNN's forward without
+    a graph; K3's is cuDNN's backward alone, `torch.autograd.grad` through one
+    kept forward graph (it also computes dx and dW_ih). K3's row adds
+    `layer_ms`, K3 with `_LSTMScanFused.backward`'s two einsums for dW_ih and
+    dx, the like-for-like figure. Returns the rows by tag, K4's at an eval
+    batch as `K4@<batch>`."""
     from objectpermanence_tpu_torch.ops.lstm_scan import (
         lstm_scan_backward, lstm_scan_backward_reference, lstm_scan_forward,
         lstm_scan_forward_reference, lstm_scan_hs,
@@ -682,10 +738,7 @@ def time_lstm_layer(layer, weights, device):
     h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
     c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
     dh_out = dout.transpose(0, 1).contiguous()
-    cudnn = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0], bias=False, batch_first=True).to(device)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(w_ih.t())
-        cudnn.weight_hh_l0.copy_(w_hh.t())
+    cudnn = cudnn_lstm(w_ih, w_hh, device)
     x_leaf = x.detach().clone().requires_grad_(True)
     graph_out, _ = cudnn(x_leaf)  # one forward, its graph kept for every backward
     leaves = [x_leaf, cudnn.weight_ih_l0, cudnn.weight_hh_l0]
@@ -714,21 +767,26 @@ def time_lstm_layer(layer, weights, device):
     bounds = lstm_bounds(TRAIN_BATCH, FRAMES, w_hh.shape[0])
     rows = {}
     for tag, (kernel, plain, library) in calls.items():
-        plain_a = time_ms(plain, iters=2, warmup=1)
-        kernel_a = time_ms(kernel, iters=20)
-        library_a = time_ms(library, iters=20)
-        kernel_b = time_ms(kernel, iters=20)
-        library_b = time_ms(library, iters=20)
-        plain_b = time_ms(plain, iters=2, warmup=1)
-        rows[tag] = {"ms": (kernel_a + kernel_b) / 2, "ms_runs": [kernel_a, kernel_b],
-                     "plain_ms": (plain_a + plain_b) / 2, "plain_ms_runs": [plain_a, plain_b],
-                     "library_ms": (library_a + library_b) / 2,
-                     "library_ms_runs": [library_a, library_b],
-                     "bound_ms": bounds[tag][0], "bound_by": bounds[tag][1]}
+        rows[tag] = time_in_turns(kernel, plain, library, bounds[tag])
         if tag == "K3":
             rows[tag]["layer_ms"] = time_ms(k3_layer, iters=20)
         log("times", kernel=tag, layer=layer, batch=TRAIN_BATCH, frames=FRAMES,
             hidden=w_hh.shape[0], **rows[tag])
+    for batch in EVAL_BATCHES:
+        x, w_ih, w_hh, _ = lstm_case(layer, batch, weights, device)
+        xproj = torch.matmul(x.transpose(0, 1), w_ih).contiguous()
+        cudnn = cudnn_lstm(w_ih, w_hh, device)
+
+        def cudnn_eval(cudnn=cudnn, x=x):
+            with torch.no_grad():
+                cudnn(x)
+
+        row = time_in_turns(lambda: lstm_scan_hs(xproj, w_hh),
+                            lambda: lstm_scan_forward_reference(xproj, w_hh), cudnn_eval,
+                            lstm_bounds(batch, FRAMES, w_hh.shape[0])["K4"])
+        rows[f"K4@{batch}"] = row
+        log("times", kernel="K4", layer=layer, batch=batch, frames=FRAMES,
+            hidden=w_hh.shape[0], **row)
     return rows
 
 
@@ -773,10 +831,13 @@ LSTM_KERNELS = {
 
 
 def phase_lstm_times(weights, device, launches, errors):
-    """The kernels line's rows for K2-K4 at H=512 (video_lstm); the H=256
-    layer (att_lstm) is timed and logged beside it."""
+    """The kernels line's rows for K2-K4 at H=512 (video_lstm): K2 and K3 at
+    the training batch, K4 at the eval batch the train path runs (64); the
+    H=256 layer (att_lstm), K4 at the other batches, are timed and logged
+    beside them."""
     time_lstm_layer("att_lstm", weights, device)
     rows = time_lstm_layer("video_lstm", weights, device)
+    rows["K4"] = rows[f"K4@{EVAL_BATCHES[0]}"]
     return [{"name": name, "route": "cuda",
              "source": "objectpermanence_tpu_torch/csrc/lstm_scan.cu", "replaces": site,
              "launches": launches[tag], "max_abs_err": errors[tag], "ms": rows[tag]["ms"],

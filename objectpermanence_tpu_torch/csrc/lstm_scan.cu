@@ -14,19 +14,39 @@
 // No biases. The input projection xproj = x @ w_ih and the products for dW_ih
 // and dx stay outside, as XLA computed them outside Pallas.
 //
-// Forward design (K2, K4). At the training batch (16 videos) a tile of videos
-// per block would put a handful of blocks on the card, each re-reading w_hh
-// (4 MB at H = 512) from L2 at every step. Instead the grid splits the HIDDEN
-// UNITS: block n owns units [n*U, n*U + U) for every video and every step, and
-// keeps the four gate columns of w_hh for its units in shared memory for the
-// whole sequence (H x 4U floats: 32 KB at H = 512, U = 4, 128 blocks). Steps
-// exchange h through device memory: each block writes its units' h, a
-// grid-wide barrier (cooperative launch, so all blocks are co-resident; the
-// wrapper raises if they do not fit), and each block reads the whole h_prev of
-// a tile of videos into shared memory. Within a block, 64 (video, unit) pairs
-// each take one quarter of the contraction over k, the four partial sums are
-// added in a fixed order, and one thread per pair runs the cell; it owns that
-// (video, unit)'s c for all steps.
+// Forward design (K2, K4): a weight-stationary cooperative grid of G video
+// groups x S unit slices, at most one block per SM, like K1's. Block (g, s)
+// owns the videos of group g (Bg = ceil(B / G)) and the units of slice s (U =
+// ceil(H / S)), and keeps the four gate columns of w_hh for its units in
+// shared memory for all T steps (H x U float4s: 128 KB at H = 512, U = 16).
+// The recurrence never mixes videos, so a step ends with a barrier among the
+// S blocks of a group only (K3's `group_arrive` / `group_wait`, a counter per
+// group in the scratch, zeroed by the entry before each launch). h crosses
+// between blocks through a slab per group in the scratch, (H, BgP) with BgP =
+// Bg rounded up to 4, double-buffered by step parity: a block stages its
+// group's slab of the last step in chunks of KC rows with 16-byte
+// cp.async.cg copies (around L1: other blocks wrote it in this launch),
+// double-buffered when a chunk does not cover H. A thread owns a register
+// tile of V videos x one unit's four gates, over 1 / KS of the contraction
+// over k; the lanes of a warp take consecutive units of the same videos, so
+// the h loads are broadcasts and the weight loads contiguous. Each thread's
+// parts go to shared memory, and the cells are spread over all the block's
+// threads, each adding a pair's KS parts in order of k (the chunks were added
+// in order too), with no atomics: two calls are bitwise equal. c of each
+// (video, unit) stays in shared memory for all steps (cs, K2's output, is
+// written, never read), and the next step's xproj is copied into shared
+// memory by cp.async between the block's arrival at the group barrier and
+// its wait, so the cell waits on no load. The plan (`make_fwd_plan`,
+// mirrored for the CPU by `ops/lstm_scan.py::forward_launch_plan`) picks G,
+// S, V, KS and KC from a cost model of a step (issue slots and shared-memory
+// wavefronts of the contraction, staged bytes and chunks, cells, arrivals at
+// the barrier); where no grid's shared memory holds the batch, the entry
+// launches the grid over P passes of ceil(B / P) videos. At B = 16 it picks
+// G = 4 x S = 32 at H = 512 (4 videos and 16 units a block, 8 KB of h staged
+// a step, V = 2, KS = 8) and G = 16 x S = 8 at H = 256 (one video, V = 1,
+// KS = 4); at the eval batch tiles of more videos fill the card instead of
+// passes (B = 64: V = 8 and 4; B = 400: G = 3 x S = 40 and G = 13 x S = 8,
+// V = 16).
 //
 // Backward design (K3). Of the TPU kernel's three products only one depends
 // on the backward carry, so K3 is three launches on one stream (four when
@@ -66,29 +86,25 @@
 //
 // Bound. At B = 16, T = 300, H = 512 the forward does 2.5 GFLOP (0.15 ms at
 // the card's 67 TFLOP/s fp32) and moves 15 MB (4.6 us at 3.35 TB/s): bound by
-// operations; the backward three times the operations. The forward is far
-// from that: every step costs a grid barrier and an L2 round trip for h. In
-// the backward, (A) and (C) are 10 GFLOP each at that shape, at about 40% of
-// the fp32 peak in these tiles; the loop's 300 steps are each a group
-// barrier, an L2 round trip and about 131 K FMAs a block, latency more than
-// throughput (`scripts/lstm_scan_phases.py` splits its time). fp32 parity
-// with the JAX reference rules out TF32 tensor cores.
+// operations; the backward three times the operations. At that batch a
+// forward step is a group barrier, an L2 round trip for h and 131 K FMAs a
+// block, latency more than throughput; at the eval batch (B = 400: 252 GFLOP,
+// 3.76 ms at H = 512) the FMA rate sets it. In the backward, (A) and (C) are
+// 10 GFLOP each at B = 16, at about 40% of the fp32 peak in these tiles; the
+// loop's 300 steps are each a group barrier, an L2 round trip and about 131 K
+// FMAs a block, latency more than throughput (`scripts/lstm_scan_phases.py`
+// splits the time of both by phase). fp32 parity with the JAX reference rules
+// out TF32 tensor cores.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSlices = 4;                   // the contraction is split in 4
-constexpr int kPairs = kThreads / kSlices;   // 64 (video, unit) pairs per pass
-constexpr int kMaxUnits = 64;                // U is a power of two dividing kPairs
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -114,113 +130,6 @@ __device__ __forceinline__ void add4(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 
-// Floats of hsm [BT][H + 1], rounded up to whole float4s so what follows it
-// stays 16-byte aligned.
-__host__ __device__ inline int hsm_floats(int H, int U) {
-  return ((kPairs / U) * (H + 1) + 3) / 4 * 4;
-}
-
-// Shared memory of the forward: red [kSlices][kPairs] and ws [H][U] in float4s
-// (ws: the four gate columns of each owned unit), then hsm.
-__host__ __device__ inline size_t fwd_smem_bytes(int H, int U) {
-  return sizeof(float4) * ((size_t)kSlices * kPairs + (size_t)H * U) +
-         sizeof(float) * (size_t)hsm_floats(H, U);
-}
-
-// Copy the gate columns of units [u0, u0 + U) into ws[k * U + u] = (i, f, g, o).
-__device__ __forceinline__ void load_columns(const float* __restrict__ w_hh, float4* ws, int H,
-                                             int U, int u0) {
-  for (int i = threadIdx.x; i < H * U; i += kThreads) {
-    const int k = i / U, col = u0 + i % U;
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (col < H) {
-      const float* row = w_hh + (size_t)k * 4 * H + col;
-      w = make_float4(__ldg(row), __ldg(row + H), __ldg(row + 2 * H), __ldg(row + 3 * H));
-    }
-    ws[i] = w;
-  }
-}
-
-// Stage rows [b0, b0 + nb) of a (B, width) slab, columns [c0, c0 + H), into
-// hsm[bl][k] (row stride H + 1, so the pairs of a warp hit distinct banks).
-// `coherent` loads bypass L1: the slab was written by other blocks in this
-// launch, before the last grid barrier.
-template <bool coherent>
-__device__ __forceinline__ void stage_rows(const float* src, int width, int c0, int nb, int H,
-                                           float* hsm) {
-  for (int i = threadIdx.x; i < nb * H; i += kThreads) {
-    const int bl = i / H, k = i % H;
-    const float* p = src + (size_t)bl * width + c0 + k;
-    hsm[bl * (H + 1) + k] = coherent ? __ldcg(p) : __ldg(p);
-  }
-}
-
-// Partial gates of pair (bl, u) over this thread's quarter of k.
-__device__ __forceinline__ float4 partial_gates(const float* hsm, const float4* ws, int H, int U,
-                                                int bl, int u, int k_lo, int k_hi) {
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* hrow = hsm + bl * (H + 1);
-  for (int k = k_lo; k < k_hi; ++k) fma4(acc, hrow[k], ws[k * U + u]);
-  return acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const float* __restrict__ xproj,  // (T, B, 4H)
-                const float* __restrict__ w_hh,   // (H, 4H)
-                float* hs,                        // (T, B, H), also the h exchange
-                float* cs,                        // (T, B, H), or nullptr: h only (K4)
-                float* c_state,                   // (B, H) carry when cs is nullptr
-                int T, int B, int H, int U) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float4* red = smem4;
-  float4* ws = red + kSlices * kPairs;
-  float* hsm = reinterpret_cast<float*>(ws + H * U);
-
-  const int BT = kPairs / U;
-  const int tid = threadIdx.x;
-  const int p = tid % kPairs, slice = tid / kPairs;
-  const int bl = p / U, u = p % U;
-  const int unit = blockIdx.x * U + u;
-  const int kc = (H + kSlices - 1) / kSlices;
-  const int k_lo = min(H, slice * kc), k_hi = min(H, k_lo + kc);
-  const size_t G = 4 * (size_t)H;
-
-  load_columns(w_hh, ws, H, U, blockIdx.x * U);
-
-  for (int t = 0; t < T; ++t) {
-    for (int b0 = 0; b0 < B; b0 += BT) {
-      const int nb = min(BT, B - b0);
-      __syncthreads();  // the previous tile's hsm and red are consumed
-      if (t > 0) stage_rows<true>(hs + ((size_t)(t - 1) * B + b0) * H, H, 0, nb, H, hsm);
-      __syncthreads();
-      // at t == 0 the carry h is zero, and so is its product
-      red[slice * kPairs + p] = (t > 0 && bl < nb) ? partial_gates(hsm, ws, H, U, bl, u, k_lo, k_hi)
-                                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      __syncthreads();
-      if (slice == 0 && bl < nb && unit < H) {
-        float4 s = red[p];
-        for (int q = 1; q < kSlices; ++q) add4(s, red[q * kPairs + p]);
-        const int b = b0 + bl;
-        const float* xp = xproj + ((size_t)t * B + b) * G + unit;
-        const float gi = sigmoid_f(__ldg(xp) + s.x);
-        const float gf = sigmoid_f(__ldg(xp + H) + s.y);
-        const float gg = tanhf(__ldg(xp + 2 * H) + s.z);
-        const float go = sigmoid_f(__ldg(xp + 3 * H) + s.w);
-        const size_t o = ((size_t)t * B + b) * H + unit;
-        float* c_here = cs ? cs + o : c_state + (size_t)b * H + unit;
-        const float c_prev = t == 0 ? 0.f : (cs ? cs[o - (size_t)B * H] : *c_here);
-        const float c = gf * c_prev + gi * gg;
-        *c_here = c;
-        hs[o] = go * tanhf(c);
-      }
-    }
-    grid.sync();  // h of step t is in device memory for every block
-  }
-}
-
-// ---------------------------------------------------------------- K3 ----
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
@@ -234,6 +143,10 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Barrier among the blocks that share `counter`, in two halves so that a
@@ -258,6 +171,251 @@ __device__ __forceinline__ void group_wait(const unsigned* counter, unsigned tar
   }
   __syncthreads();
 }
+
+// ------------------------------------------------------------- K2, K4 ----
+
+constexpr int kMaxKSplit = 8;  // parts of a split contraction over k
+constexpr int kMaxTile = 16;   // videos of a thread's register tile
+
+// Threads of a round a part of k takes: the round's tasks rounded up to whole
+// warps, so that the working threads are the first KS x per_round.
+__host__ __device__ inline int fwd_per_round(int tasks, int KS) {
+  return max(32, min(kThreads / KS, (tasks + 31) / 32 * 32));
+}
+
+// How K2/K4 are laid out (`make_fwd_plan`; mirrored for the CPU by
+// `ops/lstm_scan.py::forward_launch_plan`).
+struct FwdPlan {
+  int groups;       // G video groups of a pass
+  int slices;       // S unit slices; the grid is G x S blocks, all co-resident
+  int videos;       // Bg = ceil(Bp / G) videos of a group
+  int padded;       // BgP, Bg rounded up to 4: a row of a group's h slab
+  int units;        // U = ceil(H / S) units of a slice
+  int tile;         // V videos of a thread's register tile (1, 2, 4, 8 or 16)
+  int splits;       // KS parts of the contraction over k (1, 2, 4 or 8)
+  int chunk;        // KC rows of h staged at once (a multiple of 8)
+  int stage;        // floats of the stage area
+  int passes;       // P launches, each over Bp = ceil(B / P) videos
+  int pass_videos;  // Bp
+  size_t smem;      // dynamic shared memory bytes of a block
+  size_t scratch;   // bytes: the h slabs [2][G][H][BgP] floats, then G counters
+};
+
+// Floats of the stage area: one chunk of h when a chunk covers H, else two
+// (double-buffered); at least the parts of the contraction, which use it
+// after the last chunk (V float4s for each of a round's KS x per_round
+// threads).
+inline int fwd_stage_floats(int H, int BgP, int KC, int V, int KS, int tasks) {
+  const long chunks = (long)(KC >= H ? 1 : 2) * KC * BgP;
+  const long parts = 4L * V * KS * fwd_per_round(tasks, KS);
+  return (int)((std::max(chunks, parts) + 3) / 4 * 4);
+}
+
+// Shared memory of the forward: ws [H][U] float4, the stage area, csm
+// [BgP][U] (c of the block's pairs), hloc [BgP][U + 1] (their h of the step,
+// for the slab) and xs [4][BgP][U] (their xproj of the step).
+inline size_t fwd_smem_bytes(int H, int U, int BgP, int stage) {
+  const size_t floats = (size_t)stage + (size_t)BgP * U + (size_t)BgP * (U + 1) +
+                        4 * (size_t)BgP * U;
+  return (sizeof(float4) * (size_t)H * U + sizeof(float) * floats + 15) / 16 * 16;
+}
+
+// Copy the gate columns of units [u0, u0 + U) into ws[k * U + u] = (i, f, g, o).
+__device__ __forceinline__ void load_columns(const float* __restrict__ w_hh, float4* ws, int H,
+                                             int U, int u0) {
+  for (int i = threadIdx.x; i < H * U; i += kThreads) {
+    const int k = i / U, col = u0 + i % U;
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col < H) {
+      const float* row = w_hh + (size_t)k * 4 * H + col;
+      w = make_float4(__ldg(row), __ldg(row + H), __ldg(row + 2 * H), __ldg(row + 3 * H));
+    }
+    ws[i] = w;
+  }
+}
+
+// Rows [k0, k0 + rows) of a group's (H, BgP) slab of h into dst (rows, BgP),
+// around L1: other blocks wrote the slab in this launch.
+__device__ __forceinline__ void stage_chunk(const float* slab, int k0, int rows, int BgP,
+                                            float* dst) {
+  const float* src = slab + (size_t)k0 * BgP;
+  const int n4 = rows * BgP / 4;
+  for (int i = threadIdx.x; i < n4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i);
+  cp_async_commit();
+}
+
+template <int V>
+__device__ __forceinline__ void load_h(const float* p, float (&h)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      h[4 * i] = q.x;
+      h[4 * i + 1] = q.y;
+      h[4 * i + 2] = q.z;
+      h[4 * i + 3] = q.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    h[0] = q.x;
+    h[1] = q.y;
+  } else {
+    h[0] = p[0];
+  }
+}
+
+// Block (g, s) of pass `b_begin`: videos [b0, b0 + nv) of group g, units
+// [u0, u0 + nu) of slice s, all T steps. Per step t: (rounds of) the
+// contraction of h(t - 1), staged from the group's slab, with the columns in
+// ws, each thread's parts into the stage area; the cells of the round's
+// (video, unit) pairs over all threads, each adding its parts in order of k;
+// h(t) into the slab of parity t & 1; the arrival at the group's barrier,
+// the next step's xproj copied into xs, and the wait.
+template <int V>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_kernel(const float* __restrict__ xproj,  // (T, B, 4H)
+                const float* __restrict__ w_hh,   // (H, 4H)
+                float* __restrict__ hs,           // (T, B, H)
+                float* __restrict__ cs,           // (T, B, H), or nullptr: h only (K4)
+                float* slab,                      // [2][G][H][BgP]: the h exchange
+                unsigned* counters,               // (G,) zeroed: the group barriers
+                int T, int B, int H, int b_begin, FwdPlan p) {
+  extern __shared__ float4 smem4[];
+  const int S = p.slices, U = p.units, BgP = p.padded, KS = p.splits, KC = p.chunk;
+  const int g = blockIdx.x / S, s = blockIdx.x % S;
+  const int b0 = b_begin + g * p.videos;
+  const int nv = max(0, min(p.videos, min(B, b_begin + p.pass_videos) - b0));
+  const int u0 = s * U, nu = min(U, H - u0);
+  const size_t G4 = 4 * (size_t)H;
+  float4* ws = smem4;
+  float* stage = reinterpret_cast<float*>(ws + (size_t)H * U);
+  float4* red = reinterpret_cast<float4*>(stage);  // [KS][V][per_round]: the parts
+  float* csm = stage + p.stage;                // [BgP][U]: c of the pairs
+  float* hloc = csm + (size_t)BgP * U;         // [BgP][U + 1]: h(t) of the pairs
+  float* xs = hloc + (size_t)BgP * (U + 1);    // [4][BgP][U]: xproj(t) of the pairs
+  const int hstride = U + 1;
+  const int tid = threadIdx.x;
+  const int tasks = U * ((nv + V - 1) / V);  // (tile of V videos, unit), units fastest
+  // a round's tasks on KS x per_round threads, packed into the first warps
+  const int per_round = fwd_per_round(tasks, KS);
+  const int ks = tid / per_round, lt = tid % per_round;
+  const int nchunks = (H + KC - 1) / KC;
+  const int buf = KC * BgP;
+  const size_t parity = (size_t)p.groups * H * BgP;
+  float* group_slab = slab + (size_t)g * H * BgP;
+  unsigned* counter = counters + g;
+
+  load_columns(w_hh, ws, H, U, u0);
+  for (int i = tid; i < BgP * U; i += kThreads) csm[i] = 0.f;
+
+  // xproj(t) of the block's pairs into xs, units fastest (coalesced); nothing
+  // of it depends on the carry
+  const int pairs = nv * nu;
+  auto prefetch_x = [&](int t) {
+    for (int q = tid; q < 4 * pairs; q += kThreads) {
+      const int gate = q / pairs, r = q % pairs, vg = r / nu, ul = r % nu;
+      cp_async4(xs + ((size_t)gate * BgP + vg) * U + ul,
+                xproj + ((size_t)t * B + b0 + vg) * G4 + (size_t)gate * H + u0 + ul);
+    }
+    cp_async_commit();
+  };
+
+  prefetch_x(0);
+  __syncthreads();  // ws and csm are in place
+  for (int t = 0; t < T; ++t) {
+    const float* h_prev = group_slab + ((t - 1) & 1) * parity;
+    for (int base = 0; base < tasks; base += per_round) {
+      if (base > 0) __syncthreads();  // the last round is done with the stage area
+      const int task = base + lt;
+      const bool active = ks < KS && task < tasks;
+      const int vt = task / U, ul = task % U;
+      if (t > 0) {  // at t == 0 the carry h is zero, and so is its product
+        float4 acc[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+        stage_chunk(h_prev, 0, min(KC, H), BgP, stage);
+        for (int c = 0; c < nchunks; ++c) {
+          const int k0 = c * KC, rows = min(KC, H - k0);
+          if (c + 1 < nchunks) {
+            stage_chunk(h_prev, k0 + KC, min(KC, H - k0 - KC), BgP, stage + ((c + 1) & 1) * buf);
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          if (active) {
+            const int part = (rows + KS - 1) / KS;
+            const int r_lo = min(rows, ks * part), r_hi = min(rows, r_lo + part);
+            const float* hsrc = stage + (c & 1) * buf + vt * V;
+            const float4* wcol = ws + (size_t)k0 * U + ul;
+#pragma unroll 4
+            for (int r = r_lo; r < r_hi; ++r) {
+              const float4 w = wcol[(size_t)r * U];
+              float h[V];
+              load_h<V>(hsrc + r * BgP, h);
+#pragma unroll
+              for (int v = 0; v < V; ++v) fma4(acc[v], h[v], w);
+            }
+          }
+          __syncthreads();  // chunk c's buffer is free for chunk c + 2
+        }
+        if (active) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) red[(ks * V + v) * per_round + lt] = acc[v];
+        }
+      }
+      cp_async_wait<0>();  // xs of this step
+      __syncthreads();     // the parts and xs are in place
+      // the cells of the round's pairs, over all threads: pair q is video v of
+      // the round's task q % nt (units fastest, so the stores coalesce)
+      const int nt = min(per_round, tasks - base);
+      for (int q = tid; q < nt * V; q += kThreads) {
+        const int tl = q % nt, v = q / nt;
+        const int cell_task = base + tl, cu = cell_task % U;
+        const int vg = cell_task / U * V + v;
+        if (vg >= nv || cu >= nu) continue;
+        float4 gsum = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t > 0) {  // the parts, added in order of k
+          gsum = red[v * per_round + tl];
+          for (int q2 = 1; q2 < KS; ++q2) add4(gsum, red[(q2 * V + v) * per_round + tl]);
+        }
+        const float* x = xs + (size_t)vg * U + cu;
+        const size_t gate_stride = (size_t)BgP * U;
+        const float gi = sigmoid_f(x[0] + gsum.x);
+        const float gf = sigmoid_f(x[gate_stride] + gsum.y);
+        const float gg = tanhf(x[2 * gate_stride] + gsum.z);
+        const float go = sigmoid_f(x[3 * gate_stride] + gsum.w);
+        float* c_here = csm + vg * U + cu;
+        const float c = gf * *c_here + gi * gg;
+        *c_here = c;
+        const float h = go * tanhf(c);
+        const size_t o = ((size_t)t * B + b0 + vg) * H + u0 + cu;
+        hs[o] = h;
+        if (cs != nullptr) cs[o] = c;
+        hloc[vg * hstride + cu] = h;
+      }
+    }
+    if (t + 1 == T) break;
+    __syncthreads();  // hloc holds h(t) of the block's pairs
+    // h(t) of the owned units into the group's slab, along the videos (zeros
+    // past the group's last video)
+    float* h_next = group_slab + (t & 1) * parity;
+    const int q4 = BgP / 4;
+    for (int i = tid; i < nu * q4; i += kThreads) {
+      const int hu = i / q4, v4 = i % q4 * 4;
+      float hv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hv[j] = v4 + j < nv ? hloc[(v4 + j) * hstride + hu] : 0.f;
+      *reinterpret_cast<float4*>(h_next + (size_t)(u0 + hu) * BgP + v4) =
+          make_float4(hv[0], hv[1], hv[2], hv[3]);
+    }
+    group_arrive(counter);
+    prefetch_x(t + 1);  // in flight while the group arrives
+    group_wait(counter, (unsigned)S * (unsigned)(t + 1));
+  }
+}
+
+// ---------------------------------------------------------------- K3 ----
 
 constexpr int kTileK = 8;
 constexpr int kMaxSplits = 16;
@@ -541,12 +699,6 @@ lstm_bwd_loop_kernel(const float* __restrict__ c_prev,  // (T, B, H)
   }
 }
 
-struct Plan {
-  int units;   // U, hidden units per block
-  int blocks;  // ceil(H / U), all co-resident
-  size_t smem;
-};
-
 cudaError_t device_limits(int* sms, int* smem_max) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -567,25 +719,108 @@ cudaError_t fits_one_per_sm(const void* kernel, size_t smem, bool* fits) {
   return err;
 }
 
-// K2/K4: smallest power-of-two U whose grid fits one block per SM; returns
-// an error when no U fits, since a cooperative grid must be co-resident.
-cudaError_t make_fwd_plan(int H, Plan* plan) {
+const void* fwd_kernel(int V) {
+  switch (V) {
+    case 16: return (const void*)lstm_fwd_kernel<16>;
+    case 8: return (const void*)lstm_fwd_kernel<8>;
+    case 4: return (const void*)lstm_fwd_kernel<4>;
+    case 2: return (const void*)lstm_fwd_kernel<2>;
+    default: return (const void*)lstm_fwd_kernel<1>;
+  }
+}
+
+// SM clocks of one forward step of a block, roughly. Per round of tasks: the
+// contraction, H / KS rows a thread, each row costing the larger of the
+// busiest scheduler's instructions and the shared memory's wavefronts (one a
+// clock; a load of 16 bytes a lane takes one a quarter-warp, of 8 bytes one a
+// half-warp, of 4 one a warp: the weights' float4 and the h of V videos),
+// which fits the card's times of seven tiles within 15%
+// (`scripts/lstm_scan_phases.py`); the staged bytes of h at 64 a clock from
+// L2 (overlapping the contraction when chunked) and 200 clocks a chunk for
+// its block barriers. Per step: the cells, 300 clocks and 20 a part of k for
+// each cell a thread takes; an L2 round trip (1000) and 20 clocks per arrival
+// at the group's barrier. Integers, so that the CPU's mirror ties exactly
+// where this does.
+long fwd_step_clocks(int H, int U, int Bg, int BgP, int S, int V, int KS, int KC) {
+  const long tasks = (long)U * ((Bg + V - 1) / V);
+  const long per_round = fwd_per_round((int)std::min(tasks, (long)kThreads), KS);
+  const long rounds = (tasks + per_round - 1) / per_round;
+  const long active = std::min(tasks, per_round);
+  const long warps = KS * ((active + 31) / 32);
+  const long lanes = std::min(active, 32L);
+  const long quarters = (lanes + 7) / 8;
+  const long h_wf = V == 1 ? 1 : V == 2 ? (lanes + 15) / 16 : V / 4 * quarters;
+  // the busiest scheduler's instructions a row: ceil(warps / 4) warps x (4V
+  // FMAs, the loads of w and of h, 3 more), at 1.5 clocks each, or 2 where a
+  // warp has its scheduler alone (nothing hides its latencies)
+  const long per_sched = (warps + 3) / 4;
+  const long issue = per_sched * (4L * V + 1 + (V <= 2 ? 1 : V / 4) + 3);
+  const long per_row = std::max(issue * (per_sched == 1 ? 4 : 3) / 2, warps * (quarters + h_wf));
+  const long contraction = (long)((H + KS - 1) / KS) * per_row;
+  const long staged = (long)BgP * 4 * H / 64;
+  const long chunks = (H + KC - 1) / KC;
+  const long round = std::max(contraction, staged) + 200 * chunks;
+  const long cells = ((long)Bg * U + kThreads - 1) / kThreads * (300 + 20L * KS);
+  return rounds * round + cells + 1000 + 20L * S;
+}
+
+// K2/K4: the fewest passes P whose videos a grid can hold, then among the
+// G x S grids of at most one block per SM whose shared memory fits, and the
+// tiles V x KS and chunks KC each can take, the one of least
+// `fwd_step_clocks`; ties go to fewer blocks, then to more parts of k. A
+// chunk is the most rows of h (a multiple of 8) whose buffers fit. Returns
+// cudaErrorCooperativeLaunchTooLarge when no grid fits (H too wide).
+cudaError_t make_fwd_plan(int H, int B, FwdPlan* plan) {
   int sms = 0, smem_max = 0;
   cudaError_t err = device_limits(&sms, &smem_max);
   if (err != cudaSuccess) return err;
-  for (int U = 1; U <= kMaxUnits; U *= 2) {
-    const size_t smem = fwd_smem_bytes(H, U);
-    const int blocks = (H + U - 1) / U;
-    if (smem > (size_t)smem_max || blocks > sms) continue;
-    bool fits = false;
-    err = fits_one_per_sm((const void*)lstm_fwd_kernel, smem, &fits);
-    if (err != cudaSuccess) return err;
-    if (fits) {
-      *plan = Plan{U, blocks, smem};
-      return cudaSuccess;
+  const int H8 = (H + 7) / 8 * 8;
+  bool found = false;
+  long best = 0;
+  for (int P = 1; !found && P < 2 * B; P *= 2) {
+    const int Bp = (B + P - 1) / P;
+    const int passes = (B + Bp - 1) / Bp;
+    for (int S = 1; S <= H && S <= sms; ++S) {  // unit slices
+      const int U = (H + S - 1) / S;
+      if ((H + U - 1) / U != S) continue;  // S = ceil(H / U) for one U only
+      if (sizeof(float4) * (size_t)H * U > (size_t)smem_max) continue;
+      for (int G = 1; G <= Bp && G * S <= sms; ++G) {  // video groups
+        const int Bg = (Bp + G - 1) / G;
+        if ((Bp + Bg - 1) / Bg != G) continue;
+        const int BgP = (Bg + 3) / 4 * 4;
+        for (int V = 1; V <= kMaxTile && (V == 1 || V <= Bg); V *= 2) {
+          const long tasks = (long)U * ((Bg + V - 1) / V);
+          for (int KS = 1; KS <= kMaxKSplit && (KS == 1 || tasks * KS <= kThreads); KS *= 2) {
+            int KC = H8, stage = 0;
+            size_t smem = 0;
+            for (; KC >= 8; KC = KC > 256 ? 256 : KC / 2 / 8 * 8) {
+              stage = fwd_stage_floats(H, BgP, KC, V, KS, (int)tasks);
+              smem = fwd_smem_bytes(H, U, BgP, stage);
+              if (smem <= (size_t)smem_max) break;
+            }
+            if (KC < 8) continue;
+            const long cost = fwd_step_clocks(H, U, Bg, BgP, S, V, KS, KC);
+            const int blocks = G * S;
+            const int best_blocks = found ? plan->groups * plan->slices : 0;
+            if (!found || cost < best ||
+                (cost == best && (blocks < best_blocks ||
+                                  (blocks == best_blocks && KS > plan->splits)))) {
+              const size_t scratch = sizeof(float) * 2 * (size_t)G * H * BgP +
+                                     sizeof(unsigned) * (size_t)G;
+              *plan = FwdPlan{G, S, Bg, BgP, U, V, KS, KC, stage, passes, Bp, smem, scratch};
+              best = cost;
+              found = true;
+            }
+          }
+        }
+      }
     }
   }
-  return cudaErrorCooperativeLaunchTooLarge;
+  if (!found) return cudaErrorCooperativeLaunchTooLarge;
+  bool fits = false;
+  err = fits_one_per_sm(fwd_kernel(plan->tile), plan->smem, &fits);
+  if (err != cudaSuccess) return err;
+  return fits ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
 // K3's loop: among the G x S grids of at most one block per SM whose shared
@@ -688,49 +923,62 @@ cudaError_t launch_dw(const float* h_prev, const float* dgates, float* dw_hh, fl
 // contiguous fp32 tensors in the layouts documented on the kernels. Each
 // returns a cudaError_t (0 on success); the launch does not synchronise.
 
-// How the kernels would be launched at hidden width H (and, for K3, batch
-// B and T steps): out[0..7] = units per block, blocks, shared memory bytes,
-// video groups, unit slices, videos staged at once, unit lanes, scratch
-// bytes. The forward has one group, no staging and no scratch (out[5..7] =
-// 0). `backward` picks K3's plan (its loop's grid).
+// How the kernels would be launched at hidden width H, batch B (and, for
+// K3, T steps): out[0..11] = units per block, blocks, shared memory bytes,
+// video groups, unit slices, the staging (K3: videos of dgates at once; the
+// forward: rows of h a chunk), unit lanes (K3; 0 for the forward), scratch
+// bytes, the forward's register tile of videos and parts of k (0 for K3),
+// passes (launches over batch slices; 1 for K3) and videos of a group.
+// `backward` picks K3's plan (its loop's grid).
 extern "C" int lstm_scan_plan(int H, int B, int T, int backward, int* out) {
   if (H < 1 || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if (backward) {
     BwdPlan plan;
     const cudaError_t err = make_bwd_plan(H, B, T, &plan);
     if (err != cudaSuccess) return (int)err;
-    const int values[8] = {plan.units, plan.groups * plan.slices, (int)plan.smem, plan.groups,
-                           plan.slices, plan.stage, plan.lanes, (int)plan.scratch};
-    for (int i = 0; i < 8; ++i) out[i] = values[i];
+    const int values[12] = {plan.units, plan.groups * plan.slices, (int)plan.smem, plan.groups,
+                            plan.slices, plan.stage, plan.lanes, (int)plan.scratch, 0, 0, 1,
+                            plan.videos};
+    for (int i = 0; i < 12; ++i) out[i] = values[i];
     return 0;
   }
-  Plan plan;
-  const cudaError_t err = make_fwd_plan(H, &plan);
+  FwdPlan plan;
+  const cudaError_t err = make_fwd_plan(H, B, &plan);
   if (err != cudaSuccess) return (int)err;
-  const int values[8] = {plan.units, plan.blocks, (int)plan.smem, 1, plan.blocks, 0, 0, 0};
-  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  const int values[12] = {plan.units, plan.groups * plan.slices, (int)plan.smem, plan.groups,
+                          plan.slices, plan.chunk, 0, (int)plan.scratch, plan.tile,
+                          plan.splits, plan.passes, plan.videos};
+  for (int i = 0; i < 12; ++i) out[i] = values[i];
   return 0;
 }
 
-// K2 (cs given) and K4 (cs == nullptr, c carried in c_state (B, H)).
+// K2 (cs given) and K4 (cs == nullptr): the plan's passes, each one
+// cooperative launch over Bp videos on `stream`. scratch holds the plan's
+// scratch bytes (`lstm_scan_plan` out[7]): the h slabs, and the counters of
+// the group barriers, zeroed here before each pass.
 extern "C" int lstm_scan_forward_f32(const void* xproj, const void* w_hh, void* hs, void* cs,
-                                     void* c_state, int T, int B, int H, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || (cs == nullptr && c_state == nullptr))
-    return (int)cudaErrorInvalidValue;
-  Plan plan;
-  cudaError_t err = make_fwd_plan(H, &plan);
+                                     void* scratch, int T, int B, int H, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  FwdPlan plan;
+  cudaError_t err = make_fwd_plan(H, B, &plan);
   if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(xproj);
   const float* w = static_cast<const float*>(w_hh);
   float* h_out = static_cast<float*>(hs);
   float* c_out = static_cast<float*>(cs);
-  float* c_st = static_cast<float*>(c_state);
-  int U = plan.units;
-  void* args[] = {&xp, &w, &h_out, &c_out, &c_st, &T, &B, &H, &U};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel, dim3(plan.blocks),
-                                    dim3(kThreads), args, plan.smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
+  float* slab = static_cast<float*>(scratch);
+  unsigned* counters = reinterpret_cast<unsigned*>(
+      static_cast<char*>(scratch) + plan.scratch - sizeof(unsigned) * plan.groups);
+  for (int pass = 0; pass < plan.passes; ++pass) {
+    int b_begin = pass * plan.pass_videos;
+    err = cudaMemsetAsync(counters, 0, sizeof(unsigned) * plan.groups, st);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {&xp, &w, &h_out, &c_out, &slab, &counters, &T, &B, &H, &b_begin, &plan};
+    err = cudaLaunchCooperativeKernel(fwd_kernel(plan.tile), dim3(plan.groups * plan.slices),
+                                      dim3(kThreads), args, plan.smem, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -44,15 +44,18 @@ def _kernel(name: str):
     return _FNS[name]
 
 
-_PLAN_FIELDS = ("units", "blocks", "smem", "groups", "slices", "stage", "lanes", "scratch")
+_PLAN_FIELDS = ("units", "blocks", "smem", "groups", "slices", "stage", "lanes", "scratch",
+                "tile", "splits", "passes", "videos")
 
 
 def launch_plan(hidden: int, backward: bool = False, batch: int = 16, frames: int = 300):
-    """How the kernel is launched at hidden width `hidden` (and, for K3,
-    `batch` videos of `frames` steps) on the current card: units per block,
-    blocks, shared memory bytes, video groups x unit slices, videos of
-    dgates staged at once and unit lanes of a warp (K3's loop; the forward
-    has one group), and K3's scratch bytes."""
+    """How the kernel is launched at hidden width `hidden` and `batch` videos
+    (and, for K3, `frames` steps) on the current card, as the library plans
+    it: units per block, blocks (video groups x unit slices), shared memory
+    bytes, the staging (K3: videos of dgates at once; K2/K4: rows of h a
+    chunk), unit lanes of a warp (K3), scratch bytes, the forward's register
+    tile of videos and parts of the contraction over k, its passes over
+    slices of the batch, and videos of a group."""
     lib = _build.load("lstm_scan")
     out = (ctypes.c_int * len(_PLAN_FIELDS))()
     err = lib.lstm_scan_plan(ctypes.c_int(hidden), ctypes.c_int(batch), ctypes.c_int(frames),
@@ -61,11 +64,113 @@ def launch_plan(hidden: int, backward: bool = False, batch: int = 16, frames: in
     return dict(zip(_PLAN_FIELDS, out))
 
 
+# The forward's shape constants (`csrc/lstm_scan.cu`)
+THREADS = 256
+TILES = (1, 2, 4, 8, 16)  # videos of a thread's register tile (`kMaxTile`)
+K_SPLITS = (1, 2, 4, 8)   # parts of the contraction over k (`kMaxKSplit`)
+
+
+def _fwd_per_round(tasks, splits):
+    return max(32, min(THREADS // splits, -(-tasks // 32) * 32))
+
+
+def _fwd_stage_floats(hidden, padded, chunk, tile, splits, tasks):
+    chunks = (1 if chunk >= hidden else 2) * chunk * padded
+    parts = 4 * tile * splits * _fwd_per_round(tasks, splits)
+    return (max(chunks, parts) + 3) // 4 * 4
+
+
+def _fwd_smem_bytes(hidden, units, padded, stage):
+    floats = stage + padded * units + padded * (units + 1) + 4 * padded * units
+    return (16 * hidden * units + 4 * floats + 15) // 16 * 16
+
+
+def _fwd_step_clocks(hidden, units, videos, padded, slices, tile, splits, chunk):
+    """`csrc/lstm_scan.cu::fwd_step_clocks`, in the same integers."""
+    tasks = units * -(-videos // tile)
+    per_round = _fwd_per_round(min(tasks, THREADS), splits)
+    rounds = -(-tasks // per_round)
+    active = min(tasks, per_round)
+    warps = splits * -(-active // 32)
+    lanes = min(active, 32)
+    quarters = (lanes + 7) // 8
+    h_wf = 1 if tile == 1 else (lanes + 15) // 16 if tile == 2 else tile // 4 * quarters
+    per_sched = (warps + 3) // 4
+    issue = per_sched * (4 * tile + 1 + (1 if tile <= 2 else tile // 4) + 3)
+    per_row = max(issue * (4 if per_sched == 1 else 3) // 2, warps * (quarters + h_wf))
+    contraction = -(-hidden // splits) * per_row
+    staged = padded * 4 * hidden // 64
+    chunks = -(-hidden // chunk)
+    round_ = max(contraction, staged) + 200 * chunks
+    cells = -(-(videos * units) // THREADS) * (300 + 20 * splits)
+    return rounds * round_ + cells + 1000 + 20 * slices
+
+
+def _fwd_candidates(hidden, pass_videos, sms, smem_max):
+    """(cost, plan) of every grid, tile and chunk `make_fwd_plan` weighs for a
+    pass of `pass_videos` videos, in its order; a chunk is the most rows of h
+    (a multiple of 8) whose buffers fit."""
+    for slices in range(1, min(hidden, sms) + 1):
+        units = -(-hidden // slices)
+        if -(-hidden // units) != slices or 16 * hidden * units > smem_max:
+            continue  # S = ceil(H / U) for one U only; the columns must fit
+        for groups in range(1, min(pass_videos, sms // slices) + 1):
+            videos = -(-pass_videos // groups)
+            if -(-pass_videos // videos) != groups:
+                continue
+            padded = (videos + 3) // 4 * 4
+            for tile in TILES:
+                if tile > 1 and tile > videos:
+                    break
+                tasks = units * -(-videos // tile)
+                for splits in K_SPLITS:
+                    if splits > 1 and tasks * splits > THREADS:
+                        break
+                    chunk = (hidden + 7) // 8 * 8
+                    while chunk >= 8:
+                        stage = _fwd_stage_floats(hidden, padded, chunk, tile, splits, tasks)
+                        smem = _fwd_smem_bytes(hidden, units, padded, stage)
+                        if smem <= smem_max:
+                            break
+                        chunk = 256 if chunk > 256 else chunk // 2 // 8 * 8
+                    if chunk < 8:
+                        continue
+                    cost = _fwd_step_clocks(hidden, units, videos, padded, slices, tile, splits,
+                                            chunk)
+                    yield cost, {"units": units, "blocks": groups * slices, "smem": smem,
+                                 "groups": groups, "slices": slices, "stage": chunk, "lanes": 0,
+                                 "scratch": 4 * 2 * groups * hidden * padded + 4 * groups,
+                                 "tile": tile, "splits": splits, "videos": videos}
+
+
+def forward_launch_plan(hidden: int, batch: int, sms: int, smem_max: int) -> dict:
+    """K2/K4's plan for `batch` videos at `hidden` units on a card of `sms`
+    SMs and `smem_max` bytes of opt-in shared memory a block, with
+    `launch_plan`'s keys: the CPU's copy of `csrc/lstm_scan.cu::make_fwd_plan`
+    (a card test holds the two equal). The fewest passes over slices of the
+    batch whose videos a grid can hold; then the G x S grid, register tile
+    (V videos x one unit, over 1 / KS of k) and chunk of least modelled step
+    cost; ties to fewer blocks, then more parts. Raises RuntimeError when no
+    grid fits, where the library returns cudaErrorCooperativeLaunchTooLarge."""
+    if hidden < 1 or batch < 1:
+        raise ValueError(f"hidden and batch must be >= 1, got {hidden}, {batch}")
+    passes = 1
+    while passes < 2 * batch:
+        pass_videos = -(-batch // passes)
+        candidates = list(_fwd_candidates(hidden, pass_videos, sms, smem_max))
+        if candidates:
+            _, plan = min(candidates, key=lambda c: (c[0], c[1]["blocks"], -c[1]["splits"]))
+            return {**plan, "passes": -(-batch // pass_videos)}
+        passes *= 2
+    raise RuntimeError(f"no grid of the LSTM forward fits {sms} SMs of {smem_max} bytes at "
+                       f"hidden width {hidden}")
+
+
 @functools.lru_cache(maxsize=64)
-def _scratch_bytes(device_index, hidden, batch, seq_len) -> int:
-    """K3's scratch bytes on this card (the plan depends on the card only
-    through its SM count and shared memory)."""
-    return launch_plan(hidden, True, batch, seq_len)["scratch"]
+def _scratch_bytes(device_index, hidden, batch, seq_len, backward) -> int:
+    """The kernel's scratch bytes on this card (the plan depends on the card
+    only through its SM count and shared memory)."""
+    return launch_plan(hidden, backward, batch, seq_len)["scratch"]
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -156,15 +261,13 @@ def _launch_forward(xproj, w_hh, emit_cells: bool):
     seq_len, batch, hidden = xproj.shape[0], xproj.shape[1], w_hh.shape[0]
     with torch.cuda.device(xproj.device):
         hs = torch.empty((seq_len, batch, hidden), dtype=torch.float32, device=xproj.device)
-        if emit_cells:
-            cs, c_state = torch.empty_like(hs), None
-        else:
-            cs, c_state = None, torch.empty((batch, hidden), dtype=torch.float32,
-                                            device=xproj.device)
+        cs = torch.empty_like(hs) if emit_cells else None
+        # the groups' h slabs and their barriers' counters (zeroed by the entry)
+        scratch = torch.empty(_scratch_bytes(xproj.device.index, hidden, batch, seq_len, False),
+                              dtype=torch.uint8, device=xproj.device)
         err = _kernel("lstm_scan_forward_f32")(
             xproj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-            None if cs is None else cs.data_ptr(),
-            None if c_state is None else c_state.data_ptr(),
+            None if cs is None else cs.data_ptr(), scratch.data_ptr(),
             seq_len, batch, hidden, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "lstm_scan forward kernel launch")
     return hs, cs
@@ -205,7 +308,7 @@ def lstm_scan_backward(xproj, h_prev, c_prev, cs, dh_out, w_hh):
         dxproj = torch.empty_like(xproj)
         d_w_hh = torch.empty_like(w_hh)
         # dW_hh's partial sums and the loop's barrier counters (zeroed by the entry)
-        scratch = torch.empty(_scratch_bytes(xproj.device.index, hidden, batch, seq_len),
+        scratch = torch.empty(_scratch_bytes(xproj.device.index, hidden, batch, seq_len, True),
                               dtype=torch.uint8, device=xproj.device)
         err = _kernel("lstm_scan_backward_f32")(
             xproj.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(), cs.data_ptr(),

@@ -1,24 +1,30 @@
-"""Where the LSTM recurrence backward (K3, `csrc/lstm_scan.cu`) spends its
-time on a CUDA card, phase by phase, with no profiler: variants of a
-checkout's source are made by text substitution, built with the same nvcc
-flags as the port, and loaded in place of the kernel library.
+"""Where the LSTM recurrence kernels (`csrc/lstm_scan.cu`) spend their time
+on a CUDA card, phase by phase, with no profiler: variants of a checkout's
+source are made by text substitution, built with the same nvcc flags as the
+port, and loaded in place of the kernel library.
 
-    python3 scripts/lstm_scan_phases.py [--root CHECKOUT] [BATCH ...]   (default: 16)
+    python3 scripts/lstm_scan_phases.py [--kernel backward|forward] [--root CHECKOUT]
+        [BATCH ...]   (default: backward, 16)
 
-`--root` names the checkout whose source and wrapper are measured (default:
-this one), so a parent checkout unpacked under `build/` can be measured with
-this script. The substitutions of each known design of the kernel are kept
-below; the script takes the set whose anchors the source holds:
-- `unit_split` (the design up to PR 8: one block per U units for all videos,
-  the gates recomputed at every step, dW_hh accumulated in shared memory,
-  two phases and a grid barrier a step);
-- `carry_only` (the design since PR 9: the gates in a tiled product before
-  the loop, a loop of video groups x unit slices that carries only dh and
-  dc, dW_hh in a tiled product after it).
+`--kernel` picks K3, the backward (default), or K2, the forward (K4 is the
+same kernel without `cs`). `--root` names the checkout whose source and
+wrapper are measured (default: this one), so a parent checkout unpacked
+under `build/` can be measured with this script. The substitutions of each
+known design of a kernel are kept below; the script takes the set whose
+anchors the source holds:
+- backward `unit_split` (the first design: one block per U units for
+  all videos, the gates recomputed at every step, dW_hh accumulated in
+  shared memory, two phases and a grid barrier a step);
+- backward `carry_only` (the current design: the gates in a tiled product
+  before the loop, a loop of video groups x unit slices that carries only dh
+  and dc, dW_hh in a tiled product after it);
+- forward `weight_stationary` (the current design: a grid of video
+  groups x unit slices, the gate columns in shared memory, a barrier among a
+  group's blocks a step, the group's h staged in chunks with cp.async).
 
 Variants, each timed at every batch on both flagship layers (att_lstm,
-H=256; video_lstm, H=512), on the inputs `chip_smoke.py` times K3 on (CUDA
-events, mean of 10 calls after warmup):
+H=256; video_lstm, H=512), on the inputs `chip_smoke.py` times the kernel on
+(CUDA events, mean of 10 calls after warmup):
 - `kernel`: the source as committed;
 - `timed`: `%globaltimer` read at each phase boundary of the recurrence
   loop by one thread of every block (after a block barrier), summed per
@@ -29,7 +35,10 @@ events, mean of 10 calls after warmup):
   not launched), `no_dw` (the dW_hh product not launched), `no_staging`
   (the loop's cp.async staging of dgates dropped), `g1` (the plan forced to
   one video group: every block reads every video's dgates, the exchange of
-  the old design).
+  the old design); weight_stationary: `no_staging` (the cp.async staging of
+  h dropped), `no_wait` (the wait at the group barrier dropped), `g1` (the
+  plan forced to one video group: every block stages every video's h and
+  waits for every block, as the first design's grid barrier did).
 Prints the card's name and power limit first.
 """
 
@@ -62,7 +71,7 @@ extern "C" int phase_zero() {
 TIMER_AT = ("namespace {\n\nconstexpr int kThreads", TIMER + "namespace {\n\nconstexpr int kThreads")
 READER_AT = ('extern "C" int lstm_scan_plan(', READER + 'extern "C" int lstm_scan_plan(')
 
-DESIGNS = {
+DESIGNS = {"backward": {
     "unit_split": {
         "phases": ["recompute", "cell", "dW_hh", "barrier", "p2_staging", "p2_loop"],
         "variants": {
@@ -124,16 +133,46 @@ DESIGNS = {
                     "for (int G = 1; G <= 1; ++G) {  // video groups")],
         },
     },
-}
+}, "forward": {
+    "weight_stationary": {
+        "phases": ["barrier", "staging", "contraction", "cell", "slab"],
+        "variants": {
+            "kernel": [],
+            "timed": [
+                TIMER_AT, READER_AT,
+                ("  prefetch_x(0);\n  __syncthreads();  // ws and csm are in place\n",
+                 "  prefetch_x(0);\n  __syncthreads();  // ws and csm are in place\n"
+                 "  unsigned long long t0 = now_ns();\n"),
+                ("          __syncthreads();\n          if (active) {\n",
+                 "          TICK(1);\n          if (active) {\n"),
+                ("          __syncthreads();  // chunk c's buffer is free for chunk c + 2\n",
+                 "          TICK(2);  // chunk c's buffer is free for chunk c + 2\n"),
+                ("    if (t + 1 == T) break;\n    __syncthreads();  // hloc holds h(t) of the "
+                 "block's pairs\n",
+                 "    TICK(3);\n    if (t + 1 == T) break;\n"),
+                ("    group_arrive(counter);\n    prefetch_x(t + 1);",
+                 "    TICK(4);\n    group_arrive(counter);\n    prefetch_x(t + 1);"),
+                ("    group_wait(counter, (unsigned)S * (unsigned)(t + 1));\n",
+                 "    group_wait(counter, (unsigned)S * (unsigned)(t + 1));\n    TICK(0);\n"),
+            ],
+            "no_staging": [("  for (int i = threadIdx.x; i < n4; i += kThreads) "
+                            "cp_async16(dst + 4 * i, src + 4 * i);\n", "")],
+            "no_wait": [("    group_wait(counter, (unsigned)S * (unsigned)(t + 1));\n",
+                         "    __syncthreads();\n")],
+            "g1": [("for (int G = 1; G <= Bp && G * S <= sms; ++G) {  // video groups",
+                    "for (int G = 1; G <= 1 && G * S <= sms; ++G) {  // video groups")],
+        },
+    },
+}}
 
 
-def pick_design(source):
-    """The design whose every anchor the source holds."""
-    for name, design in DESIGNS.items():
+def pick_design(source, kernel):
+    """The design of `kernel` whose every anchor the source holds."""
+    for name, design in DESIGNS[kernel].items():
         anchors = [old for subs in design["variants"].values() for old, _ in subs]
         if all(old in source for old in anchors):
             return name, design
-    raise RuntimeError("the source matches no known design of K3; update DESIGNS")
+    raise RuntimeError(f"the source matches no known design of the {kernel}; update DESIGNS")
 
 
 def build_variants(build, source, design, out):
@@ -161,6 +200,7 @@ def build_variants(build, source, design, out):
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--kernel", choices=sorted(DESIGNS), default="backward")
     parser.add_argument("--root", type=Path, default=SCRIPT_REPO)
     parser.add_argument("batches", type=int, nargs="*", default=[16])
     args = parser.parse_args()
@@ -182,8 +222,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     source = (root / "objectpermanence_tpu_torch" / "csrc" / "lstm_scan.cu").read_text()
-    design_name, design = pick_design(source)
-    libs = build_variants(_build, source, design, SCRIPT_REPO / "build" / "lstm_scan_phases")
+    design_name, design = pick_design(source, args.kernel)
+    libs = build_variants(_build, source, design,
+                          SCRIPT_REPO / "build" / "lstm_scan_phases" / args.kernel)
     weights = chip_smoke.flagship_weights(device)
     for batch in args.batches:
         for layer in chip_smoke.LSTM_LAYERS:
@@ -197,8 +238,12 @@ def main() -> int:
             for name, lib in libs.items():
                 _build._LIBS["lstm_scan"] = lib
                 lstm_scan._FNS.clear()
+                if hasattr(lstm_scan._scratch_bytes, "cache_clear"):
+                    lstm_scan._scratch_bytes.cache_clear()  # a variant may plan another grid
 
                 def run():
+                    if args.kernel == "forward":
+                        return lstm_scan.lstm_scan_forward(xproj, w_hh)
                     return lstm_scan.lstm_scan_backward(xproj, h_prev, c_prev, cs, dh_out, w_hh)
 
                 fields[f"{name}_ms"] = chip_smoke.time_ms(run, iters=10)
@@ -215,7 +260,8 @@ def main() -> int:
                     for i, phase in enumerate(design["phases"]):
                         fields[phase] = (f"{per_block[:, i].mean():.4f}/"
                                          f"{per_block[:, i].max():.4f}")
-            chip_smoke.log("lstm_scan_phases", design=design_name, layer=layer, batch=batch,
+            chip_smoke.log("lstm_scan_phases", kernel=args.kernel, design=design_name,
+                           layer=layer, batch=batch,
                            frames=chip_smoke.FRAMES, hidden=w_hh.shape[0], **fields)
     return 0
 

@@ -18,9 +18,10 @@ kernel and `opnet_forward_reference` run the same float32 arithmetic with
 sums in another order: atol 1e-4 on `y` and the logits, and integer pixel
 boxes at most 1 px apart on at most 0.1% of the coordinates. The LSTM
 kernels hold `hs`, `cs` and `dxproj` at atol 1e-4 and `dW_hh` at 1e-4 x
-max(1, max |reference|), since it sums B x T terms; K3 also at widths no
-unit split divides (seeded weights), and two of its calls are bitwise
-equal. RoIAlign holds its
+max(1, max |reference|), since it sums B x T terms, up to the eval batch of
+400; K2/K4 and K3 also at widths no unit split divides (seeded weights),
+two calls of each are bitwise equal, and the forward's plan equals its CPU
+mirror. RoIAlign holds its
 output at 1e-4 x max(1, max |reference|): the pyramid's values reach 1e3.
 K8 holds each level's gradient at 1e-4 x max(1, max |reference|): it sums
 many rois' shares in another order than the plain scatter (a fixed one: two
@@ -50,8 +51,8 @@ from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
 from objectpermanence_tpu_torch.ops.lstm import lstm_forward
 from objectpermanence_tpu_torch.ops.lstm_scan import (
-    launch_plan, lstm_scan_backward, lstm_scan_backward_reference, lstm_scan_forward,
-    lstm_scan_forward_reference, lstm_scan_hs,
+    forward_launch_plan, launch_plan, lstm_scan_backward, lstm_scan_backward_reference,
+    lstm_scan_forward, lstm_scan_forward_reference, lstm_scan_hs,
 )
 from objectpermanence_tpu_torch.ops.opnet_fused import (
     opnet_forward_reference, opnet_fused_forward,
@@ -212,7 +213,7 @@ def _layer_input(layer, boxes, model):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [16, 13, 1, 37, 64])
+@pytest.mark.parametrize("batch", [16, 13, 1, 37, 64, 400])
 @pytest.mark.parametrize("layer", ["att_lstm", "video_lstm"])
 def test_lstm_kernels_match_plain(layer, batch):
     device = _card()
@@ -238,6 +239,72 @@ def test_lstm_kernels_match_plain(layer, batch):
         assert (got - want).abs().max().item() <= 1e-4
     limit = 1e-4 * max(1.0, want_d_w_hh.abs().max().item())
     assert (d_w_hh - want_d_w_hh).abs().max().item() <= limit
+
+
+def _lstm_forward_case(hidden, batch, device, seed, in_dim=6, frames=300):
+    """Seeded xproj (T, B, 4H) and w_hh (H, 4H) of one LSTM layer."""
+    rng = np.random.default_rng(seed)
+    w_ih = torch.from_numpy((rng.standard_normal((in_dim, 4 * hidden)) * 0.3).astype(np.float32))
+    w_hh = torch.from_numpy((rng.standard_normal((hidden, 4 * hidden))
+                             / np.sqrt(hidden)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((frames, batch, in_dim)).astype(np.float32))
+    return torch.matmul(x.to(device), w_ih.to(device)).contiguous(), w_hh.to(device)
+
+
+FORWARD_WIDTHS = [16, 24, 132, 256, 260, 512, 1024]
+FORWARD_BATCHES = [1, 13, 16, 37, 64, 400, 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 13, 37, 400])
+@pytest.mark.parametrize("hidden", [16, 24, 132, 260, 1024])
+def test_lstm_forward_other_widths_match_plain(hidden, batch):
+    """K2 and K4 at widths and batches no unit or video split divides evenly
+    (seeded weights), one launch each."""
+    device = _card()
+    xproj, w_hh = _lstm_forward_case(hidden, batch, device, seed=hidden + batch)
+    before = (lstm_scan_forward.launches, lstm_scan_hs.launches)
+    hs, cs = lstm_scan_forward(xproj, w_hh)
+    hs_only = lstm_scan_hs(xproj, w_hh)
+    torch.cuda.synchronize()
+    assert (lstm_scan_forward.launches, lstm_scan_hs.launches) == (before[0] + 1, before[1] + 1)
+    want_hs, want_cs = lstm_scan_forward_reference(xproj, w_hh)
+    for got, want in ((hs, want_hs), (cs, want_cs), (hs_only, want_hs)):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,batch", [(512, 16), (256, 13), (512, 400), (256, 400),
+                                          (132, 37)])
+def test_lstm_forward_is_deterministic(hidden, batch):
+    """Two calls of K2 and of K4 give bitwise-equal outputs, and K4's hs is
+    K2's: every sum is taken in a fixed order, with no atomics on data."""
+    device = _card()
+    xproj, w_hh = _lstm_forward_case(hidden, batch, device, seed=11)
+    first, second = lstm_scan_forward(xproj, w_hh), lstm_scan_forward(xproj, w_hh)
+    hs_a, hs_b = lstm_scan_hs(xproj, w_hh), lstm_scan_hs(xproj, w_hh)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(hs_a, hs_b) and torch.equal(hs_a, first[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", FORWARD_WIDTHS)
+def test_lstm_forward_plan_is_the_mirror_and_fits_the_card(hidden):
+    """The library's forward plan (`make_fwd_plan`) equals its CPU mirror
+    `forward_launch_plan` at this card's SMs and shared memory, and fits."""
+    _card()
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    smem_max = props.shared_memory_per_block_optin
+    for batch in FORWARD_BATCHES:
+        plan = launch_plan(hidden, batch=batch)
+        assert plan == forward_launch_plan(hidden, batch, sms, smem_max), (hidden, batch)
+        assert 1 <= plan["blocks"] == plan["groups"] * plan["slices"] <= sms
+        assert plan["slices"] * plan["units"] >= hidden > (plan["slices"] - 1) * plan["units"]
+        assert plan["smem"] <= smem_max
+        assert plan["passes"] * plan["groups"] * plan["videos"] >= batch
 
 
 def _lstm_backward_case(hidden, batch, device, seed, in_dim=6, frames=300):
