@@ -6,23 +6,30 @@ Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1, in
 float32 and with bf16 operands; `lstm_scan`: K2, K3, K4; `roi_align`: K7,
 with K5/K6 as its one-image entries, K8, its backward (bf16 dF too), and K9,
 the windowed RoIAlign; K7 and K9 in float32 and bfloat16), holds each against
-its plain PyTorch version at the main paths' full-width shapes, drives the
-main paths (OPNet inference over ingested detections, in float32 through the
-CLI and with bf16 operands through `make_predict_step`; OPNet training on a
-fixture dataset followed by inference from its best checkpoint; `preprocess`,
-the full-width Faster R-CNN over fixture videos, followed by OPNet inference
-over the pickles it wrote, all three through the port's CLI; Faster R-CNN
-training through `train_detector` at the dettrain recipe's full width,
-resumed, then detection from its best checkpoint; the same at the 800 px
-`train800` recipe in bf16, then steps of its fp32 twin and of bf16 with
-"auto"; `preprocess` at the 800 px bf16 recipe, then chunks of its fp32 twin,
-of the default `DetectorConfig()` and of the native geometry in bf16),
-reading each kernel's launch count around each path, runs one detector train
-step at each geometry and one 800 px video again with the plain RoIAlign
-swapped in, profiles one full-width train step of OPNet and of the detector
-(native fp32, 800 px bf16 and fp32) and detector chunks at both geometries,
-times every kernel beside its bound, its plain version and a library
-yardstick where there is one, and prints as its last line
+its plain PyTorch version at the main paths' full-width shapes, holds the five
+other reasoning models (`baseline_lstm`, `non_linear_lstm`, `transformer_lstm`,
+also with `reference_compat`, `opnet_lstm_mlp`, `opnet_moe`) at their shipped
+widths against the CPU's plain loops, forward (K4) and one train step's
+gradients (K2/K3), drives the main paths (OPNet inference over ingested
+detections, in float32 through the CLI and with bf16 operands through
+`make_predict_step`, then the CLI's `analysis` of its predictions; OPNet
+training on a fixture dataset followed by inference and `cater_inference`
+from its best checkpoint; training then inference of each of the five other
+models through the CLI; `preprocess`, the full-width Faster R-CNN over fixture
+videos, followed by OPNet inference over the pickles it wrote, all through
+the port's CLI; Faster R-CNN training through `train_detector` at the
+dettrain recipe's full width, resumed, then detection from its best
+checkpoint; the same at the 800 px `train800` recipe in bf16, then steps of
+its fp32 twin and of bf16 with "auto"; `preprocess` at the 800 px bf16
+recipe, then chunks of its fp32 twin, of the default `DetectorConfig()` and
+of the native geometry in bf16), reading each kernel's launch count around
+each path, runs one detector train step at each geometry and one 800 px
+video again with the plain RoIAlign swapped in, profiles one full-width train
+step of OPNet, of each other reasoning model (with its inference at B=512)
+and of the detector (native fp32, 800 px bf16 and fp32) and detector chunks
+at both geometries, runs `bench_torch.py`, times every kernel beside its
+bound, its plain version and a library yardstick where there is one, and
+prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failure exits non-zero before that line. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -582,6 +589,338 @@ def phase_train_path(device):
         px_max_diff_vs_plain=px_max, px_diff_share=px_share)
     assert px_max <= PX_MAX and px_share <= PX_SHARE, "trained model's inference disagrees"
     return launches
+
+
+# the five learned architectures beside OPNet, at their shipped widths
+# (configs/<name>_model_config.json; opnet_moe on OPNet's config with its defaults,
+# 4 experts x 128): seeded weights, the served boxes (5 features for the baselines)
+NEW_MODELS = ("baseline_lstm", "non_linear_lstm", "transformer_lstm", "opnet_lstm_mlp",
+              "opnet_moe")
+MODELS_SEED = 17
+COMPAT_BATCH = 2     # transformer_lstm's reference_compat attends over all B*T tokens
+MODELS_EPOCHS = 1    # models_path: the train path's 64 + 16 fixture videos, cut to 1 epoch
+
+
+def model_setup(name, device, **overrides):
+    """`(spec, the model on the CPU, its copy on the card)` from a seed, in
+    eval mode, at the shipped config."""
+    import copy
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    config = {**load_model_config(name), **overrides}
+    spec = get_model_spec(name, config)
+    cpu = spec.build(config, torch.Generator().manual_seed(MODELS_SEED)).eval()
+    return spec, cpu, copy.deepcopy(cpu).to(device)
+
+
+def lstm_layers(model):
+    from objectpermanence_tpu_torch.ops.lstm import LSTM
+    return sum(isinstance(m, LSTM) for m in model.modules())
+
+
+def compare_model(name, device, batch, **overrides):
+    """One model's `forward_layers` on the card (K4) against the CPU's plain
+    loop, and one train step's gradients on the card (K2/K3) against the
+    CPU's, dropout off on both sides (eval mode); the launch counts read
+    around each."""
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+    from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
+    spec, cpu, gpu = model_setup(name, device, **overrides)
+    layers = lstm_layers(cpu)
+    boxes = served_boxes(batch, device)[..., :spec.feature_width].contiguous()
+    with np.load(BENCH_CACHE) as blob:
+        labels = torch.from_numpy(blob["labels"][:batch, :FRAMES].astype(np.float32))
+    labels = torch.from_numpy(np.tile(labels.numpy(), (-(-batch // len(labels)), 1, 1))[:batch])
+    mask = torch.zeros(labels.shape, dtype=torch.bool)
+    weights = torch.ones(batch)
+
+    read = reset_launches()
+    with torch.no_grad():
+        got = gpu.forward_layers(boxes)
+    torch.cuda.synchronize()
+    forward_counts = read()
+    with torch.no_grad():
+        want = cpu.forward_layers(boxes.cpu())
+    got, want = (got, want) if spec.double_output else ((got,), (want,))
+    errs = {"y": max_err(got[0].cpu(), want[0])}
+    if spec.double_output:
+        errs["logits"] = max_err(got[1].cpu(), want[1])
+    px_max, px_share = pixel_diff(denormalize_boxes(got[0]).cpu(), denormalize_boxes(want[0]))
+
+    steps = {}
+    for side, model, dev in (("card", gpu, device), ("cpu", cpu, torch.device("cpu"))):
+        step = make_train_step(spec, make_optimizer(model.parameters(), 1e-3))
+        read = reset_launches()
+        metrics = step(model, boxes.to(dev), labels.to(dev), mask.to(dev), weights.to(dev))
+        if side == "card":
+            torch.cuda.synchronize()
+            train_counts = read()
+        steps[side] = (metrics, {k: p.grad.cpu() for k, p in model.named_parameters()})
+    grad_errs = {k: max_err(g, steps["cpu"][1][k]) / grad_limit(steps["cpu"][1][k])
+                 for k, g in steps["card"][1].items()}
+    loss_err = abs(steps["card"][0]["loss"].item() - steps["cpu"][0]["loss"].item())
+    worst = max(grad_errs, key=grad_errs.get)
+    log("models_vs_plain", model=name, batch=batch, frames=FRAMES, lstm_layers=layers,
+        **{f"max_abs_err_{k}": v for k, v in errs.items()}, px_max_diff_vs_plain=px_max,
+        px_diff_share=px_share, loss_abs_err=loss_err,
+        worst_grad=worst, worst_grad_err_over_limit=grad_errs[worst],
+        forward_launches=json.dumps(forward_counts), train_launches=json.dumps(train_counts),
+        **overrides)
+    assert all(v <= ATOL for v in errs.values()), f"{name}: forward disagrees with plain {errs}"
+    assert px_max <= PX_MAX and px_share <= PX_SHARE, f"{name}: pixel boxes disagree"
+    assert grad_errs[worst] <= 1.0, f"{name}: gradient {worst} disagrees with plain"
+    assert loss_err <= ATOL, f"{name}: train loss disagrees with plain"
+    assert forward_counts["K4"] == layers and sum(forward_counts.values()) == layers, \
+        f"{name}: forward launches {forward_counts}"
+    assert train_counts["K2"] == train_counts["K3"] == layers and \
+        sum(train_counts.values()) == 2 * layers, f"{name}: train launches {train_counts}"
+
+
+def phase_models_vs_plain(device):
+    """Each new architecture at its shipped width and the train batch of 16,
+    and transformer_lstm with `reference_compat` at 2 videos."""
+    for name in NEW_MODELS:
+        compare_model(name, device, TRAIN_BATCH)
+    compare_model("transformer_lstm", device, COMPAT_BATCH, reference_compat=True)
+
+
+def phase_models_path(device):
+    """For each new architecture, `python -m objectpermanence_tpu_torch
+    training` at its shipped width on the train path's fixture splits (64 +
+    16 videos, cut to 1 epoch), then `inference` from what it wrote, each
+    with the launch counts read around it: K2 = K3 = LSTM layers x steps, K4
+    in the eval step and in inference, K1 never. The written boxes are held
+    against the CPU's plain forward on the same weights."""
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
+    from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.models.registry import init_model
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+    from objectpermanence_tpu_torch.utils.checkpoint import trained_params
+
+    work = WORK_DIR / "models_path"
+    shutil.rmtree(work, ignore_errors=True)
+    train = write_fixture_dataset(work / "train", num_videos=TRAIN_VIDEOS, seed=11)
+    dev_pred, dev_labels, dev_cont = write_fixture_dataset(work / "dev", num_videos=DEV_VIDEOS,
+                                                           seed=12)
+    shipped = json.loads((REPO / "configs" / "training_config.json").read_text())
+    shipped_inf = json.loads((REPO / "configs" / "inference_config.json").read_text())
+    steps = MODELS_EPOCHS * -(-TRAIN_VIDEOS // shipped["batch_size"])
+    totals = {}
+    for name in NEW_MODELS:
+        run = work / name
+        run.mkdir()
+        config = load_model_config(name)
+        (run / "model.json").write_text(json.dumps(config))
+        (run / "training.json").write_text(json.dumps({
+            **shipped, "num_epochs": MODELS_EPOCHS, "print_step": 2,
+            "checkpoints_path": str(run / "checkpoints"), "cache_dir": str(work / "cache"),
+            "metrics_file": str(run / "metrics.jsonl"),
+            "train_sample_dir": str(train[0]), "train_labels_dir": str(train[1]),
+            "train_containment_file": str(train[2]), "dev_sample_dir": str(dev_pred),
+            "dev_labels_dir": str(dev_labels), "dev_containment_file": str(dev_cont)}))
+        read = reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["training", "--model_type", name, "--model_config",
+                       str(run / "model.json"), "--training_config", str(run / "training.json")])
+        torch.cuda.synchronize()
+        train_seconds = time.perf_counter() - t0
+        train_counts = read()
+        assert rc == 0, f"{name}: training CLI exit {rc}"
+        epoch = json.loads((run / "metrics.jsonl").read_text().splitlines()[-1])
+        assert np.isfinite(epoch["train"]["loss"]) and np.isfinite(epoch["dev"]["loss"]), epoch
+        model_path, read_from = trained_params(run / "checkpoints" / name, run / "metrics.jsonl")
+
+        (run / "inference.json").write_text(json.dumps({
+            **shipped_inf, "sample_dir": str(dev_pred), "labels_dir": str(dev_labels),
+            "model_path": str(model_path), "videos_dir": None, "device": "cuda",
+            "cache_dir": str(work / "cache")}))
+        read = reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["inference", "--model_type", name, "--results_dir", str(run / "results"),
+                       "--inference_config", str(run / "inference.json"),
+                       "--model_config", str(run / "model.json")])
+        torch.cuda.synchronize()
+        inference_seconds = time.perf_counter() - t0
+        inference_counts = read()
+        assert rc == 0, f"{name}: inference CLI exit {rc}"
+
+        files = sorted((run / "results").glob("*_bb.json"))
+        predicted = np.stack([np.array(json.loads(f.read_text())) for f in files])
+        assert predicted.shape == (DEV_VIDEOS, FRAMES, 4) and predicted.dtype.kind == "i"
+        spec, model = init_model(name, config, checkpoint_path=str(model_path), device="cpu")
+        dataset = ingest_directory(dev_pred, dev_labels, spec.feature_width)
+        assert [f"{n}_bb.json" for n in dataset.names] == [f.name for f in files]
+        with torch.no_grad():
+            want = model.forward_layers(torch.from_numpy(dataset.boxes))
+        want = want[0] if spec.double_output else want
+        px_max, px_share = pixel_diff(torch.from_numpy(predicted), denormalize_boxes(want))
+        layers = lstm_layers(model)
+        log("models_path", model=name, train_videos=TRAIN_VIDEOS, dev_videos=DEV_VIDEOS,
+            frames=FRAMES, epochs=MODELS_EPOCHS, steps=steps, lstm_layers=layers,
+            train_seconds=f"{train_seconds:.3f}", inference_seconds=f"{inference_seconds:.3f}",
+            train_launches=json.dumps(train_counts),
+            inference_launches=json.dumps(inference_counts), read_from=read_from,
+            train_loss=epoch["train"]["loss"], dev_loss=epoch["dev"]["loss"],
+            dev_miou=epoch["dev"]["mean_iou"], px_max_diff_vs_plain=px_max,
+            px_diff_share=px_share)
+        assert train_counts["K1"] == inference_counts["K1"] == 0, f"{name} launched K1"
+        assert train_counts["K2"] == train_counts["K3"] == layers * steps, train_counts
+        assert train_counts["K4"] > 0 and inference_counts["K4"] > 0, (train_counts,
+                                                                      inference_counts)
+        assert inference_counts["K2"] == inference_counts["K3"] == 0, inference_counts
+        assert px_max <= PX_MAX and px_share <= PX_SHARE, f"{name}: inference disagrees"
+        for counts in (train_counts, inference_counts):
+            for tag in ("K2", "K3", "K4"):
+                totals[tag] = totals.get(tag, 0) + counts[tag]
+    return totals
+
+
+def phase_analysis_path():
+    """`python -m objectpermanence_tpu_torch analysis` over the main path's
+    predictions against the fixture's labels, with every annotation file
+    the fixture writes."""
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    data = WORK_DIR / "data"
+    out = WORK_DIR / "analysis.csv"
+    read = reset_launches()
+    rc = cli_main(["analysis", "--predictions_dir", str(WORK_DIR / "results"),
+                   "--labels_dir", str(data / "labels"),
+                   "--containment_annotations", str(data / "containment_annotations.txt"),
+                   "--containment_only_static_annotations",
+                   str(data / "containment_only_static.txt"),
+                   "--containment_with_movements_annotations",
+                   str(data / "containment_with_move.txt"),
+                   "--visibility_ratio_gt_0", str(data / "visibility_rate_gt_0.txt"),
+                   "--visibility_ratio_gt_30", str(data / "visibility_rate_gt_30.txt"),
+                   "--visibility_ratio_gt_99", str(data / "visibility_rate_gt_99.txt"),
+                   "--iou_thresholds", "0.5,0.9", "--output_file", str(out)])
+    counts = read()
+    assert rc == 0, f"analysis CLI exit {rc}"
+    lines = out.read_text().splitlines()
+    header = lines[0].split(",")
+    overall = [float(line.split(",")[header.index("overall_iou")]) for line in lines[1:]]
+    log("analysis_path", videos=len(lines) - 1, columns=len(header),
+        mean_overall_iou=float(np.mean(overall)), launches=json.dumps(counts))
+    assert len(lines) - 1 == MAIN_PATH_VIDEOS, f"{len(lines) - 1} rows"
+    for column in ("overall_iou", "overall_map_0.5", "overall_map_0.9", "contained_mean_iou",
+                   "full_occlusion_mean_iou", "visibility_gt_99_mean_map_0.9"):
+        assert column in header, f"no {column} column"
+    assert all(0.0 <= v <= 1.0 for v in overall), "IoU out of [0, 1]"
+    assert sum(counts.values()) == 0, f"analysis launched kernels: {counts}"
+
+
+def phase_cater_path(device):
+    """`python -m objectpermanence_tpu_torch cater_inference` from the OPNet
+    checkpoint tree of `phase_train_path` over its dev videos: K1 only, one
+    class row per video, the classes those of the plain forward's last boxes
+    (a box within a pixel of the plain one may cross a grid line)."""
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+    from objectpermanence_tpu_torch.ops.homography import grid_classes_for_centers
+    from objectpermanence_tpu_torch.ops.opnet_fused import opnet_forward_reference
+    from objectpermanence_tpu_torch.utils.checkpoint import best_params_checkpoint, load_params
+    work = WORK_DIR / "train_path"
+    inference = json.loads((work / "inference.json").read_text())
+    read = reset_launches()
+    rc = cli_main(["cater_inference", "--model_type", "opnet", "--results_dir",
+                   str(WORK_DIR / "cater"), "--inference_config", str(work / "inference.json"),
+                   "--model_config", str(REPO / "configs" / "opnet_model_config.json")])
+    torch.cuda.synchronize()
+    counts = read()
+    assert rc == 0, f"cater_inference CLI exit {rc}"
+    lines = (WORK_DIR / "cater" / "class_pred_results.csv").read_text().splitlines()
+    assert lines[0] == "video_names,class_predictions", lines[0]
+    rows = [line.split(",") for line in lines[1:]]
+    classes = np.array([int(c) for _, c in rows])
+
+    dataset = ingest_directory(inference["sample_dir"], inference["labels_dir"], 6)
+    assert [n for n, _ in rows] == [f"{n}.avi" for n in dataset.names]
+    state = load_params(best_params_checkpoint(inference["model_path"]))
+    trained = [state[k].to(device) for k in ("att_lstm.w_ih", "att_lstm.w_hh", "att_head.w",
+                                             "video_lstm.w_ih", "video_lstm.w_hh",
+                                             "box_head.w")]
+    want_y, _ = opnet_forward_reference(torch.from_numpy(dataset.boxes).to(device), *trained)
+    last = denormalize_boxes(want_y)[:, -1].cpu().numpy().astype(np.float64)
+    want = grid_classes_for_centers(np.stack([(last[:, 0] + last[:, 2]) / 2,
+                                              (last[:, 1] + last[:, 3]) / 2], -1))
+    log("cater_path", videos=len(rows), launches=json.dumps(counts),
+        classes_equal_plain=int((classes == want).sum()), distinct_classes=len(set(classes)))
+    assert len(rows) == DEV_VIDEOS and classes.min() >= 0 and classes.max() < 36
+    assert counts["K1"] > 0 and sum(counts.values()) == counts["K1"], counts
+    assert (classes != want).sum() <= 1, f"classes {classes} != plain {want}"
+
+
+def phase_bench_torch():
+    """`python3 bench_torch.py` in its own process on the card: its one
+    JSON line, with `bench.py`'s keys."""
+    proc = subprocess.run([sys.executable, str(REPO / "bench_torch.py")], capture_output=True,
+                          text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    result = json.loads(lines[0])
+    assert list(result) == ["metric", "value", "unit", "vs_baseline", "compute_fps",
+                            "compute_fps_bf16", "link_efficiency", "data"], result
+    assert result["value"] > 0 and result["compute_fps"] > 0 and result["compute_fps_bf16"] > 0
+    print("[bench_torch] " + lines[0], flush=True)
+    return result
+
+
+def profile_top(fn, calls, top=5):
+    """A torch.profiler window of `calls` calls: the device's busy share of
+    it and its `top` kernels' device ms per call."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        window_ms = time_ms(fn, iters=calls, warmup=0) * calls
+    kernels = device_kernel_ms(prof)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return sum(kernels.values()) / window_ms, {name[:60]: ms / calls for name, ms in ranked}
+
+
+def phase_models_step_profile(device, smi, steps=10):
+    """Each new architecture at its shipped width: one train step at the
+    train batch of 16 (train mode, dropout on for transformer_lstm, as
+    training runs it) and one inference batch of 512 through
+    `make_predict_step`, each the mean of `steps` calls (inference: half as
+    many) by CUDA events, then a profiler window of each with the device's
+    busy share and its leading kernels."""
+    from objectpermanence_tpu_torch.infer.reasoning import make_predict_step
+    from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
+    for name in NEW_MODELS:
+        spec, _, model = model_setup(name, device)
+        boxes = served_boxes(TRAIN_BATCH, device)[..., :spec.feature_width].contiguous()
+        with np.load(BENCH_CACHE) as blob:
+            labels = torch.from_numpy(blob["labels"][:TRAIN_BATCH, :FRAMES].astype(np.float32))
+        labels = labels.to(device)
+        mask = torch.zeros(labels.shape, dtype=torch.bool, device=device)
+        weights = torch.ones(TRAIN_BATCH, device=device)
+        step = make_train_step(spec, make_optimizer(model.parameters(), 1e-3),
+                               torch.Generator(device).manual_seed(MODELS_SEED))
+        model.train()
+
+        def train():
+            step(model, boxes, labels, mask, weights)
+
+        step_ms = time_ms(train, iters=steps)
+        train_busy, train_top = profile_top(train, calls=2)
+        model.eval()
+        served = served_boxes(BATCH, device)[..., :spec.feature_width].contiguous()
+        predict = make_predict_step(spec, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        infer_ms = time_ms(lambda: predict(model, served), iters=steps // 2)
+        infer_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        infer_busy, infer_top = profile_top(lambda: predict(model, served), calls=1)
+        log("models_step_profile", model=name, train_batch=TRAIN_BATCH, infer_batch=BATCH,
+            frames=FRAMES, train_step_ms=step_ms,
+            train_samples_per_s=TRAIN_BATCH / (step_ms / 1e3), train_busy_share=train_busy,
+            train_top_ms=json.dumps(train_top), infer_ms=infer_ms,
+            infer_frames_per_s=BATCH * FRAMES / (infer_ms / 1e3), infer_busy_share=infer_busy,
+            infer_top_ms=json.dumps(infer_top), infer_peak_gib=infer_peak, card=repr(smi))
+        del model, step
+        torch.cuda.empty_cache()
 
 
 class CudnnOPNet(torch.nn.Module):
@@ -2154,9 +2493,13 @@ def main() -> int:
     train_set, dev_set = detection_sets(REPO / "build" / "chip_smoke_detection")
     k8_error, k8_inputs = phase_roi_align_grad_vs_plain(dettrain_detector(device), train_set)
     k8_bf16_error, k8_bf16_inputs = phase_roi_align_bf16_grad_vs_plain(device, train_set)
+    phase_models_vs_plain(device)
     launches = phase_main_path(weights, device)
+    phase_analysis_path()
     k1_bf16_launches = phase_main_path_bf16(weights, device)
     train_launches = phase_train_path(device)
+    phase_cater_path(device)
+    models_launches = phase_models_path(device)
     preprocess_launches = phase_preprocess_path(device)
     detector_train_launches = phase_detector_train_path(train_set, dev_set)
     train800_launches = phase_detector_train_800_path(train_set, dev_set)
@@ -2164,11 +2507,14 @@ def main() -> int:
     phase_detector_train_step_swap(device, train_set)
     phase_detector_train_800_step_swap(device, train_set)
     phase_train_step_profile(device)
+    phase_models_step_profile(device, smi)
+    phase_bench_torch()
     phase_detect_profile(detector)
     phase_detect_800_profile(det800_bf16, det800_detector(device, "float32"))
     kernels = [phase_times(weights, device, launches, max_abs_err),
                phase_times(weights, device, k1_bf16_launches, k1_bf16_error, torch.bfloat16)]
-    kernels += phase_lstm_times(weights, device, train_launches, lstm_errors)
+    lstm_launches = {tag: train_launches[tag] + models_launches[tag] for tag in ("K2", "K3", "K4")}
+    kernels += phase_lstm_times(weights, device, lstm_launches, lstm_errors)
     kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
     kernels += [phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error),
                 phase_k8_bf16_times(k8_bf16_inputs, train800_launches["K8"], k8_bf16_error)]

@@ -1,9 +1,11 @@
 """CLI of the port: `python -m objectpermanence_tpu_torch <mode> ...`.
 
-The same subcommands and flags as the JAX package's `main.py`. Ported:
-`inference` and `training` for the OPNet family, and `preprocess` (the
-Faster R-CNN detector over videos). `analysis` and `cater_inference`, and
-every model not ported yet, exit non-zero saying so.
+The same subcommands and flags as the JAX package's `main.py`: `inference`
+and `training` of every learned model, `preprocess` (the Faster R-CNN
+detector over videos), `analysis` (IoU and mAP of a predictions directory
+as a CSV) and `cater_inference` (the 36-way grid class of each video's last
+box). The two programmed models (`detector_tracker`, `detector_heuristic`)
+are not ported yet: their `inference` exits non-zero saying so.
 """
 
 import argparse
@@ -79,10 +81,21 @@ def main(argv=None) -> int:
         from objectpermanence_tpu_torch.infer.preprocess import preprocess_main
         preprocess_main(args.results_dir, _load_json(args.config))
         return 0
-    if mode not in ("inference", "training"):
-        print(f"{mode}: not yet ported to PyTorch (ported: inference, training, "
-              f"preprocess); see ROADMAP.md, Next slices", file=sys.stderr)
-        return 2
+    if mode == "analysis":
+        from objectpermanence_tpu_torch.analysis.offline import analyze_results
+        iou_thresholds = [float(t) for t in args.iou_thresholds.split(",")]
+        analyze_results(args.predictions_dir, args.labels_dir, args.output_file,
+                        args.containment_annotations, args.containment_only_static_annotations,
+                        args.containment_with_movements_annotations, args.visibility_ratio_gt_0,
+                        args.visibility_ratio_gt_30, args.visibility_ratio_gt_99, iou_thresholds)
+        return 0
+    if mode == "cater_inference":
+        if args.model_config is None:
+            parser.error("cater_inference needs --model_config")
+        from objectpermanence_tpu_torch.infer.cater_setup import cater_setup_inference
+        cater_setup_inference(args.model_type, args.results_dir,
+                              _load_json(args.inference_config), _load_json(args.model_config))
+        return 0
     try:
         spec = get_model_spec(args.model_type)
     except NotImplementedError as exc:

@@ -2,10 +2,11 @@
 `objectpermanence_tpu/infer/reasoning.py`: ingest -> batched forward on
 the card -> integer pixel boxes -> per-video `<name>_bb.json`.
 
-On CUDA the OPNet forward is the fused kernel (`ops/opnet_fused.py`), in
-float32 or with bf16 operands (`make_predict_step(compute_dtype=...)`).
-There is one card, so there is no mesh and no batch padding: the kernel
-masks a ragged last batch itself.
+On CUDA the dense OPNet's forward is the fused kernel (K1,
+`ops/opnet_fused.py`), in float32 or with bf16 operands
+(`make_predict_step(compute_dtype=...)`); every other model runs
+`forward_layers`, whose LSTMs run on the forward-only recurrence kernel
+(K4). There is one card, so there is no mesh and no batch padding.
 """
 
 from pathlib import Path
@@ -18,8 +19,17 @@ from objectpermanence_tpu_torch import resolve_device
 from objectpermanence_tpu_torch.analysis.analyzer import write_bb_predictions
 from objectpermanence_tpu_torch.config import config_device, inference_config_from
 from objectpermanence_tpu_torch.data.ingest import IngestedDataset, batches, ingest_directory
-from objectpermanence_tpu_torch.models.registry import ModelSpec, init_model
+from objectpermanence_tpu_torch.models.reasoning import OPNet
+from objectpermanence_tpu_torch.models.registry import ModelSpec, init_model, model_class
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+
+
+def fused_opnet_eligible(model_name: str) -> bool:
+    """Whether the fused OPNet kernel (K1) computes this model: the dense
+    OPNet (two LSTMs and a dense box head). `opnet_lstm_mlp` has no video
+    LSTM and `opnet_moe` has experts for a head, so both take
+    `forward_layers`, as in JAX."""
+    return model_class(model_name) is OPNet
 
 
 def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32,
@@ -32,8 +42,8 @@ def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32,
     `compute_dtype` (None: float32, or torch.bfloat16) picks the fused
     kernel's operands on the card, as JAX's picks its Pallas kernel's on the
     TPU: bf16 trades about a pixel of box precision for half the weight
-    bytes. Off the card it is ignored, as JAX's CPU path ignores it: the
-    plain forward runs in float32.
+    bytes. Off the card, and for the models K1 does not compute, it is
+    ignored, as in JAX: they run in float32.
 
     On the card TF32 is switched off for matmuls and cuDNN, so the input
     projection outside the kernel keeps fp32 parity with the reference."""
@@ -48,11 +58,12 @@ def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         fused_dtype = compute_dtype or torch.float32
+    fused = fused_opnet_eligible(spec.name)
 
     @torch.inference_mode()
     def predict_step(model, boxes):
         boxes = torch.as_tensor(boxes, dtype=torch.float32).to(device).contiguous()
-        out = model(boxes, compute_dtype=fused_dtype)
+        out = model(boxes, compute_dtype=fused_dtype) if fused else model.forward_layers(boxes)
         if spec.double_output:
             out = out[0]
         return denormalize_boxes(out, out_dtype)

@@ -7,7 +7,7 @@ bridge without a transpose. On CUDA tensors `LSTM` runs the recurrence on
 the kernels of `ops/lstm_scan.py`: `lstm_scan_fused` (K2 forward, K3
 backward) when a gradient is recorded, the forward-only K4 otherwise. On
 CPU tensors it runs `lstm_forward`, a plain time loop that autograd
-differentiates.
+differentiates. `StackedLSTM` is `num_layers` of them in a row.
 """
 
 import math
@@ -61,3 +61,20 @@ class LSTM(nn.Module):
                                         or self.w_hh.requires_grad):
             return lstm_scan_fused(params, x)
         return lstm_scan_pallas(params, x)
+
+
+class StackedLSTM(nn.ModuleList):
+    """A multi-layer LSTM, as torch's `num_layers=k` with no dropout between
+    layers (`stacked_lstm_init` / `stacked_lstm_apply`): layer 0 maps
+    `input_dim` to `hidden_dim`, each later one `hidden_dim` to itself.
+    Parameters are `<i>.w_ih`, `<i>.w_hh`, the JAX package's list of layers.
+    Each layer is an `LSTM`, so on CUDA each runs its own kernels."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int, generator=None):
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1)
+        super().__init__(LSTM(d, hidden_dim, generator) for d in dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            x = layer(x)
+        return x

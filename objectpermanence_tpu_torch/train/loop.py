@@ -1,10 +1,14 @@
 """The training loop, the counterpart of `objectpermanence_tpu/train/loop.py`.
 
-- The train step is forward, loss, backward and an Adam update. The OPNet
-  forward runs layer by layer (`OPNet.forward_layers`), so on the card both
-  LSTMs run on the recurrence kernels: K2 forward and K3 backward in the
-  train step, the forward-only K4 in the eval step. The fused inference
-  kernel (K1) is never used here.
+- The train step is forward, loss, backward and an Adam update. Every
+  model's forward runs layer by layer (`forward_layers`), so on the card
+  its LSTMs run on the recurrence kernels: K2 forward and K3 backward in
+  the train step, the forward-only K4 in the eval step. The fused inference
+  kernel (K1) is never used here. The train step adds `opnet_moe`'s
+  balance term and `opnet_att_ce`'s attention cross-entropy by their spec
+  weights, and runs dropout (`transformer_lstm`) from a generator seeded
+  from the training seed; the eval step runs the model in eval mode,
+  without dropout.
 - Datasets are resident on the device; batches are gathered there by index.
   `batch_indices` shuffles with `RandomState(seed + epoch)` and pads the
   last batch by repeating its last row, exactly as the JAX loop, so the
@@ -34,6 +38,7 @@ import torch
 from objectpermanence_tpu_torch import resolve_device
 from objectpermanence_tpu_torch.config import TrainingConfig, config_device, training_config_from
 from objectpermanence_tpu_torch.data.ingest import IngestedDataset
+from objectpermanence_tpu_torch.models.moe import moe_balance_loss
 from objectpermanence_tpu_torch.models.registry import ModelSpec
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes, iou_xyxy
 from objectpermanence_tpu_torch.train.losses import attention_ce_loss, total_loss
@@ -54,16 +59,33 @@ def _fp32_products(device: torch.device) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def make_train_step(spec: ModelSpec, optimizer: torch.optim.Optimizer):
+def _forward(spec: ModelSpec, model, boxes, generator=None, weights=None):
+    """-> (boxes, who-to-attend logits or None, balance term or None), as
+    JAX's `_forward`: the balance term where the spec weighs one (its token
+    weights the sample weights), the logits for the double-output models."""
+    if spec.aux_loss_weight:
+        out, logits, probs = model.forward_layers(boxes, generator, return_probs=True)
+        return out, logits, moe_balance_loss(probs, token_weight=weights)
+    if spec.double_output:
+        out, logits = model.forward_layers(boxes, generator)
+        return out, logits, None
+    return model.forward_layers(boxes, generator), None, None
+
+
+def make_train_step(spec: ModelSpec, optimizer: torch.optim.Optimizer, generator=None):
     """`train_step(model, boxes, labels, mask, weights=None, tracks=None)`
     -> metrics (0-d tensors); updates `model` in place. `weights (B,)` is 0
-    on the repeated rows that pad a ragged batch. Gradients stay in
-    `param.grad` until the next step."""
+    on the repeated rows that pad a ragged batch. Dropout, where the model
+    has it, runs in train mode from `generator` (on the model's device).
+    Gradients stay in `param.grad` until the next step."""
 
     def train_step(model, boxes, labels, mask, weights=None, tracks=None):
         optimizer.zero_grad(set_to_none=True)
-        out, logits = model.forward_layers(boxes)
+        out, logits, aux = _forward(spec, model, boxes, generator, weights)
         loss, metrics = total_loss(out, labels, mask, spec.no_labels, sample_weight=weights)
+        if aux is not None:
+            loss = loss + spec.aux_loss_weight * aux
+            metrics = {**metrics, "loss": loss, "balance_loss": aux}
         if spec.att_ce_weight and tracks is not None:
             att_ce = attention_ce_loss(logits, tracks, sample_weight=weights)
             loss = loss + spec.att_ce_weight * att_ce
@@ -81,7 +103,9 @@ def make_eval_step(spec: ModelSpec):
 
     @torch.no_grad()
     def eval_step(model, boxes, labels, mask):
-        out, _ = model.forward_layers(boxes)
+        out = model.forward_layers(boxes)
+        if spec.double_output:
+            out = out[0]
         _, metrics = total_loss(out, labels, mask, spec.no_labels)
         # the reference truncates to int32 pixels before the IoU
         iou = iou_xyxy(denormalize_boxes(out).float(), denormalize_boxes(labels).float())
@@ -207,7 +231,9 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
             highest_dev_iou = float(meta["highest_dev_iou"])
             print(f"Resumed from {latest} at epoch {start_epoch}")
 
-    train_step = make_train_step(spec, optimizer)
+    # dropout's generator, seeded from the training seed (JAX: PRNGKey(seed + 1))
+    generator = torch.Generator(device).manual_seed(seed + 1)
+    train_step = make_train_step(spec, optimizer, generator)
     eval_step = make_eval_step(spec)
 
     history = []

@@ -112,6 +112,13 @@ def save_train_state(path, model: torch.nn.Module, optimizer: torch.optim.Optimi
     return path
 
 
+def train_state_params(path) -> Dict[str, torch.Tensor]:
+    """The model's state_dict saved in a resumable state (`save_train_state`)."""
+    with np.load(Path(path) / "state.npz", allow_pickle=False) as blob:
+        return {key[len("params/"):]: torch.from_numpy(blob[key].copy())
+                for key in blob.files if key.startswith("params/")}
+
+
 def restore_train_state(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
     """Load a state written by `save_train_state` into `model` and
     `optimizer` (built over the same tensors of `model` as the one saved);
@@ -143,3 +150,22 @@ def latest_checkpoint(checkpoint_dir) -> Optional[Path]:
     if not candidates:
         return None
     return max(candidates, key=lambda p: (p.stat().st_mtime, p.name))
+
+
+def trained_params(checkpoint_dir, metrics_file):
+    """`(model_path, read_from)`: what inference reads after a training run
+    that wrote `checkpoint_dir` and `metrics_file`. That is the best-dev
+    tree; where the last dev mIoU was NaN (a predicted box of negative area
+    can make a frame's IoU 0/0 under the +1 area convention, and a NaN mIoU
+    is never the best, in the JAX loop as in the port's) and no best-dev
+    tree was written, the last epoch's params, saved beside the tree as
+    `last_epoch.npz`."""
+    checkpoint_dir = Path(checkpoint_dir)
+    dev_miou = json.loads(Path(metrics_file).read_text().splitlines()[-1])["dev"]["mean_iou"]
+    best = best_params_checkpoint(checkpoint_dir)
+    if (best is not None) != bool(np.isfinite(dev_miou)):
+        raise ValueError(f"best-dev checkpoint {best} does not fit the last dev mIoU {dev_miou}")
+    if best is not None:
+        return checkpoint_dir, best.name
+    last = train_state_params(latest_checkpoint(checkpoint_dir / "resume"))
+    return save_params(checkpoint_dir.parent / "last_epoch.npz", last), "last_epoch"

@@ -140,24 +140,17 @@ def test_cli_inference_on_cpu(fixture_data, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["training", "--model_type", "baseline_lstm", "--model_config", "m",
-     "--training_config", "t"],
-    ["training", "--model_type", "opnet_moe", "--model_config", "m", "--training_config", "t"],
-    ["analysis", "--predictions_dir", "p", "--labels_dir", "l", "--iou_thresholds", "0.5",
-     "--output_file", "o"],
-    ["cater_inference", "--results_dir", "r", "--inference_config", "i"],
     ["inference", "--model_type", "detector_heuristic", "--results_dir", "r",
      "--inference_config", "i"],
-    ["inference", "--model_type", "baseline_lstm", "--results_dir", "r",
-     "--inference_config", "i", "--model_config", "m"],
+    ["inference", "--model_type", "detector_tracker", "--results_dir", "r",
+     "--inference_config", "i"],
 ])
 def test_cli_modes_not_ported_exit_nonzero(argv, capsys):
     assert port_main(argv) != 0
     assert "not yet ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("name", ["baseline_lstm", "transformer_lstm_no_labels",
-                                  "opnet_moe", "opnet_lstm_mlp", "detector_tracker"])
+@pytest.mark.parametrize("name", ["detector_tracker", "detector_heuristic"])
 def test_registry_names_roadmap_item_for_unported_models(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model_spec(name)

@@ -85,6 +85,36 @@ def test_cpu_path_runs_without_jax(tmp_path):
     assert out.strip().endswith("ok")
 
 
+def test_root_scripts_and_new_cli_modes_run_without_jax(tmp_path):
+    out = _run("""
+        import importlib.util, json
+        from pathlib import Path
+        for script in ("chip_smoke.py", "bench_torch.py"):
+            spec = importlib.util.spec_from_file_location(script[:-3], Path({repo!r}) / script)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        from objectpermanence_tpu_torch.__main__ import main as cli_main
+        from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
+        pred, labels, containment = write_fixture_dataset("data", num_videos=3, seed=1,
+                                                          num_frames=40)
+        json.dump({"videos_hidden_dim": 8, "boxes_features_dim": 4}, open("model.json", "w"))
+        json.dump({"sample_dir": str(pred), "labels_dir": str(labels), "device": "cpu"},
+                  open("inference.json", "w"))
+        for mode in ("inference", "cater_inference"):
+            assert cli_main([mode, "--model_type", "non_linear_lstm", "--results_dir", "out",
+                             "--inference_config", "inference.json",
+                             "--model_config", "model.json"]) == 0
+        assert cli_main(["analysis", "--predictions_dir", "out", "--labels_dir", str(labels),
+                         "--containment_annotations", str(containment), "--iou_thresholds",
+                         "0.5", "--output_file", "analysis.csv"]) == 0
+        assert Path("out/class_pred_results.csv").exists() and Path("analysis.csv").exists()
+        assert sys.modules["jax"] is None
+        leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
+        assert not leaked, leaked
+        print("ok")
+    """.replace("{repo!r}", repr(str(REPO))), tmp_path)
+    assert out.strip().endswith("ok")
+
+
 def test_entry_points_raise_without_a_card(tmp_path):
     shipped = str(REPO / "configs" / "preprocess_config.json")
     out = _run("""

@@ -2,7 +2,8 @@
 fused OPNet forward (K1), the LSTM recurrence forward, backward and
 forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
 one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
-the bf16 modes of K1, K7, K8 and K9.
+the bf16 modes of K1, K7, K8 and K9; the five reasoning models beside OPNet
+on the LSTM kernels, `StackedLSTM`'s launches, and `bench_torch.py`.
 
 Marked `gpu`; without a CUDA card each test skips (decided inside the
 test). On a machine with an H100 and the CUDA toolkit:
@@ -49,7 +50,7 @@ import torch
 from objectpermanence_tpu_torch.models.reasoning import OPNet
 from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
-from objectpermanence_tpu_torch.ops.lstm import lstm_forward
+from objectpermanence_tpu_torch.ops.lstm import LSTM, StackedLSTM, lstm_forward
 from objectpermanence_tpu_torch.ops.lstm_scan import (
     forward_launch_plan, launch_plan, lstm_scan_backward, lstm_scan_backward_reference,
     lstm_scan_forward, lstm_scan_forward_reference, lstm_scan_hs,
@@ -389,6 +390,98 @@ def test_train_step_on_cuda_runs_the_lstm_kernels_not_k1():
     make_eval_step(spec)(model, boxes, labels, mask)
     torch.cuda.synchronize()
     assert counts()[3] == after[3] + 2 and counts()[:3] == after[:3]  # eval: K4 only
+
+
+NEW_MODELS = [("baseline_lstm", False), ("non_linear_lstm", False), ("transformer_lstm", False),
+              ("transformer_lstm", True), ("opnet_lstm_mlp", False), ("opnet_moe", False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,compat", NEW_MODELS,
+                         ids=[n + ("_reference_compat" if c else "") for n, c in NEW_MODELS])
+def test_new_model_on_card_matches_cpu(name, compat):
+    """The five other architectures at their shipped widths on 4 served
+    videos (2 with reference_compat): `forward_layers` on K4 against the
+    CPU's plain loop within 1e-4, and one train step's gradients on K2/K3
+    within 1e-4 x max(1, max |cpu's|), in eval mode (no dropout); K1 never."""
+    import copy
+    from objectpermanence_tpu_torch.config import load_model_config
+    device = _card()
+    batch = 2 if compat else 4
+    config = {**load_model_config(name), **({"reference_compat": True} if compat else {})}
+    spec = get_model_spec(name, config)
+    cpu = spec.build(config, torch.Generator().manual_seed(3)).eval()
+    gpu = copy.deepcopy(cpu).to(device)
+    boxes, _, _ = _inputs(batch, device)
+    boxes = boxes[:, :300, :, :spec.feature_width].contiguous()
+    counts = lambda: (opnet_fused_forward.launches, lstm_scan_forward.launches,  # noqa: E731
+                      lstm_scan_backward.launches, lstm_scan_hs.launches)
+    layers = sum(isinstance(m, LSTM) for m in cpu.modules())
+    before = counts()
+    with torch.no_grad():
+        got = gpu.forward_layers(boxes)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2], before[3] + layers)
+    with torch.no_grad():
+        want = cpu.forward_layers(boxes.cpu())
+    for g, w in zip(*((got, want) if spec.double_output else ((got,), (want,)))):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4
+    labels = torch.rand((batch, 300, 4), generator=torch.Generator().manual_seed(1))
+    mask = torch.zeros((batch, 300, 4), dtype=torch.bool)
+    grads = []
+    for model, dev in ((gpu, device), (cpu, torch.device("cpu"))):
+        before = counts()
+        make_train_step(spec, make_optimizer(model.parameters(), 1e-3))(
+            model, boxes.to(dev), labels.to(dev), mask.to(dev), torch.ones(batch, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert counts() == (before[0], before[1] + layers, before[2] + layers, before[3])
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    for key, want_grad in grads[1].items():
+        limit = 1e-4 * max(1.0, want_grad.abs().max().item())
+        assert (grads[0][key] - want_grad).abs().max().item() <= limit, key
+
+
+@pytest.mark.gpu
+def test_stacked_lstm_launch_counts():
+    """A 3-layer StackedLSTM: K2 and K3 once per layer with a gradient, K4
+    once per layer without; its output equals the layers run one by one."""
+    device = _card()
+    stack = StackedLSTM(90, 512, 3, torch.Generator().manual_seed(4)).to(device)
+    boxes, _, _ = _inputs(16, device)
+    x = boxes[:, :300].reshape(16, 300, 90).contiguous()
+    counts = lambda: (lstm_scan_forward.launches, lstm_scan_backward.launches,  # noqa: E731
+                      lstm_scan_hs.launches)
+    before = counts()
+    with torch.no_grad():
+        h = stack(x)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 3)
+    out = stack(x)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 3, before[1] + 3, before[2] + 3)
+    torch.testing.assert_close(out.detach(), h, rtol=0, atol=0)
+    with torch.no_grad():
+        layer_by_layer = stack[2](stack[1](stack[0](x)))
+    assert torch.equal(layer_by_layer, h)
+
+
+@pytest.mark.gpu
+def test_bench_torch_on_card():
+    import json
+    import subprocess
+    import sys
+    _card()
+    proc = subprocess.run([sys.executable, str(REPO / "bench_torch.py"), "--batch", "64"],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    result = json.loads(lines[0])
+    assert list(result) == ["metric", "value", "unit", "vs_baseline", "compute_fps",
+                            "compute_fps_bf16", "link_efficiency", "data"]
+    assert result["value"] > 0 and result["compute_fps"] > 0 and result["compute_fps_bf16"] > 0
 
 
 def _pyramid(batch, n, device, channels=256, seed=0):
