@@ -27,7 +27,14 @@ each path, runs one detector train step at each geometry and one 800 px
 video again with the plain RoIAlign swapped in, profiles one full-width train
 step of OPNet, of each other reasoning model (with its inference at B=512)
 and of the detector (native fp32, 800 px bf16 and fp32) and detector chunks
-at both geometries, runs `bench_torch.py`, times every kernel beside its
+at both geometries, runs `bench_torch.py`, holds the full-width SiamRPN
+tracker on the card against the CPU (its forward at the 271 and 287 px
+searches and a batch-32 train step's gradients), drives the programmed
+models through the CLI (`detector_heuristic` and `detector_tracker` on
+fixture videos, against their CPU runs), trains SiamRPN with
+`siam_train_main` and tracks a video from its checkpoint, profiles its train
+step and its per-frame network (all of which launch none of the port's
+kernels: SiamRPN is library convs), times every kernel beside its
 bound, its plain version and a library yardstick where there is one, and
 prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -2467,6 +2474,385 @@ def phase_windowed_times(inputs, native_bf16_inputs, launches, errors):
     return rows
 
 
+# SiamRPN (models/siam.py), the detector_tracker model: SiamRPNvot at its full
+# width (3-96-256-384-384-256, exemplar 127, search 271 and 287), weights from
+# `siam_train_init(seed)` with each batch norm's running statistics calibrated on
+# fixture crops (`calibrate_batch_norm`: the init's mean 0, var 1 saturate every
+# score); the tracker path over TRACKER_VIDEOS fixture videos of 300 frames, its
+# training on SIAM_PAIRS pairs cut from fixture frames (SIAM_HOLDOUT held out),
+# batch 32, 2 epochs, from 30 epochs of 4,000 rendered pairs
+SIAM_SEED, TRACKER_SEED, TRACKER_VIDEOS = 61, 62, 3
+SIAM_BATCH, SIAM_PAIRS, SIAM_HOLDOUT, SIAM_EPOCHS = 32, 96, 32, 2
+SIAM_RTOL = 1e-4     # SiamRPN's forward on the card vs the CPU: 1e-4 x max(1, max |CPU's|)
+# a batch-32 train step's gradients against the CPU's float64 gradient, each tensor's
+# distance over max(1, max |g|): float32 itself is up to 1e-2 from it (batch-statistics
+# BN over features with large means cancels), so the card's float32 gradient must be
+# no farther than twice the CPU's float32 gradient is
+SIAM_GRAD_FACTOR = 2.0
+# the tracker replayed on the CPU's trajectory: each hidden frame's update on the card
+# within 0.1 px of the CPU's, or, where the two pick different anchors, the CPU's
+# penalized scores of the two within TIE_PSCORE (5x the scores' measured card-CPU gap)
+STATE_PX, TIE_PSCORE = 0.1, 1e-4
+
+
+def siam_seeded(device):
+    """The calibrated seeded SiamRPN on `device`, and fixture frames (RGB)."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models import siam
+    from objectpermanence_tpu_torch.train import siam_loop
+    frames = draw_frames(make_scene(SIAM_SEED, num_frames=16), seed=SIAM_SEED)
+    z = np.stack([siam.get_subwindow(f, (160, 120), 100, 127, f.mean((0, 1)))
+                  for f in frames[::2]])
+    x = np.stack([siam.get_subwindow(f, (160, 120), 200, 271, f.mean((0, 1)))
+                  for f in frames[::2]])
+    model = siam_loop.siam_train_init(torch.Generator().manual_seed(SIAM_SEED))
+    siam_loop.calibrate_batch_norm(model, torch.from_numpy(z).permute(0, 3, 1, 2).float(),
+                                   torch.from_numpy(x).permute(0, 3, 1, 2).float())
+    return model.to(device).eval(), frames
+
+
+def siam_crop(frame, size, side):
+    from objectpermanence_tpu_torch.models import siam
+    crop = siam.get_subwindow(frame, (150.0, 110.0), side, size, frame.mean((0, 1)))
+    return torch.from_numpy(np.ascontiguousarray(crop.transpose(2, 0, 1)[None])).float()
+
+
+def siam_pairs(count, seed=SIAM_SEED):
+    """(z, x, gt) uint8 pairs that `_crop_pair` cuts from fixture frames: a
+    visible object at t and again at t + dt (dt <= 20) of a drawn scene."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.train import siam_loop
+    rng = np.random.RandomState(seed)
+    zs, xs, gts = [], [], []
+    scene_id = 0
+    while len(gts) < count:
+        scene = make_scene(seed * 1000 + scene_id, num_frames=60)
+        frames = draw_frames(scene, seed=scene_id)
+        scene_id += 1
+        for _ in range(8):
+            k = rng.randint(scene["boxes"].shape[1])
+            seen = np.flatnonzero(scene["visible"][:, k])
+            t = int(rng.choice(seen[:-1]))
+            later = seen[(seen > t) & (seen <= t + 20)]
+            if len(later) == 0:
+                continue
+            t2 = int(rng.choice(later))
+            xywh = [np.concatenate([b[:2], b[2:] - b[:2]]) for b in
+                    (scene["boxes"][t, k], scene["boxes"][t2, k])]
+            z, x, gt = siam_loop._crop_pair([frames[t], frames[t2]], *xywh, rng)
+            zs.append(z)
+            xs.append(x)
+            gts.append(gt)
+    return np.stack(zs[:count]), np.stack(xs[:count]), np.stack(gts[:count])
+
+
+def phase_siam_vs_plain(device):
+    """The full-width SiamRPN on the card against the same module on the CPU
+    on the same crops: `temple`'s kernels, `track_forward`'s delta and score
+    at the 271 and 287 px searches, then one training forward and backward of
+    `siam_pair_loss` at batch 32 with the masks fixed (drawn once on the
+    host): the gradients against the CPU's float64 ones, the card's float32
+    no farther from them than SIAM_GRAD_FACTOR times the CPU's float32
+    gradients are. Library convs
+    (cuDNN, as XLA's convs in JAX): no kernel of the port runs, and the
+    counts stay 0."""
+    import copy
+    from objectpermanence_tpu_torch.train import siam_loop
+    card, frames = siam_seeded(device)
+    cpu = copy.deepcopy(card).cpu()
+    z = siam_crop(frames[3], 127, 90)
+    errors = {}
+    read = reset_launches()
+    with torch.inference_mode():
+        want_k, got_k = cpu.temple(z), card.temple(z.to(device))
+        for name, want, got in zip(("r1_kernel", "cls1_kernel"), want_k, got_k):
+            errors[name] = (max_err(got.cpu(), want), SIAM_RTOL * max(1.0, want.abs().max().item()))
+        for size, side in ((271, 190), (287, 200)):
+            x = siam_crop(frames[5], size, side)
+            want = cpu.track_forward(want_k, x)
+            got = card.track_forward(got_k, x.to(device))
+            for name, w, g in zip(("delta", "score"), want, got):
+                errors[f"{name}_{size}"] = (max_err(g.cpu(), w),
+                                            SIAM_RTOL * max(1.0, w.abs().max().item()))
+    z, x, gt = (torch.from_numpy(a) for a in siam_pairs(SIAM_BATCH))
+    z, x = z.permute(0, 3, 1, 2).float(), x.permute(0, 3, 1, 2).float()
+    _, xyxy = siam_loop.anchor_arrays()
+    draws = torch.from_numpy(np.random.RandomState(SIAM_SEED).uniform(
+        0, 1, (2, SIAM_BATCH, xyxy.shape[0])).astype(np.float32))
+    masks = siam_loop.siam_pair_masks(gt, xyxy, draws[0], draws[1])
+    grads, losses = {}, {}
+    for tag, dev, dtype in (("exact", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                            ("card", device, torch.float32)):
+        model = copy.deepcopy(cpu).to(dev, dtype).train()
+        delta, score, _ = siam_loop.pair_forward_train(model, z.to(dev, dtype), x.to(dev, dtype))
+        cxcywh, _ = siam_loop.anchor_arrays(dev)
+        cls_l, reg_l = siam_loop.siam_pair_loss(delta, score, gt.to(dev, dtype), cxcywh.to(dtype),
+                                                *(m.to(dev) for m in masks))
+        loss = cls_l.mean() + reg_l.mean()
+        loss.backward()
+        losses[tag] = loss.item()
+        grads[tag] = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    counts = read()
+
+    def grad_errors(tag):
+        return {n: max_err(g, grads["exact"][n]) / max(1.0, grads["exact"][n].abs().max().item())
+                for n, g in grads[tag].items()}
+
+    card_rel, cpu_rel = grad_errors("card"), grad_errors("cpu")
+    errors["grads"] = (max(card_rel.values()), SIAM_GRAD_FACTOR * max(cpu_rel.values()))
+    worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    log("siam_vs_plain", batch=SIAM_BATCH, loss_card=losses["card"], loss_cpu=losses["cpu"],
+        loss_exact=losses["exact"],
+        temple_err=max(errors["r1_kernel"][0], errors["cls1_kernel"][0]),
+        delta_err_271=errors["delta_271"][0], score_err_271=errors["score_271"][0],
+        delta_err_287=errors["delta_287"][0], score_err_287=errors["score_287"][0],
+        card_grad_rel_err=max(card_rel.values()), cpu_fp32_grad_rel_err=max(cpu_rel.values()),
+        card_worst_tensor=max(card_rel, key=card_rel.get),
+        cpu_worst_tensor=max(cpu_rel, key=cpu_rel.get),
+        worst=f"{worst[0]}:{worst[1][0]:.3e}/{worst[1][1]:.3e}", launches=json.dumps(counts))
+    for name, (err, limit) in errors.items():
+        assert err <= limit, f"SiamRPN {name} on the card off the CPU's: {err} > {limit}"
+    assert sum(counts.values()) == 0, f"SiamRPN launched the port's kernels: {counts}"
+
+
+class ReplayTracker:
+    """Stands in for a `SiamRPNTracker` inside `ObjectDetectWithSiamTracker`:
+    the CPU tracker's states drive the trajectory, and on every frame the
+    card's network also runs from the same state (with its own exemplar
+    kernels, from the same crop), so each decision is compared on the same
+    input, where a free run would carry one near-tie's other pick into
+    every later frame."""
+
+    def __init__(self, cpu, card):
+        self.cpu, self.card, self.cfg = cpu, card, cpu.cfg
+        self.frames = self.ties = 0
+        self.max_px, self.bad = 0.0, []
+
+    def init(self, im, pos, sz):
+        state = self.cpu.init(im, pos, sz)
+        self.card_kernels = self.card.init(im, pos, sz).kernels
+        return state
+
+    def track(self, state, im):
+        from dataclasses import replace
+        from objectpermanence_tpu_torch.models.siam import penalized_scores
+        want_out = self.cpu.forward(state, im)
+        got_out = self.card.forward(replace(state, kernels=self.card_kernels), im)
+        want, got = self.cpu.update(state, *want_out), self.cpu.update(state, *got_out)
+        self.frames += 1
+        pscores = [penalized_scores(d, s, state.anchors, state.window, state.sz * scale,
+                                    self.cfg["penalty_k"], self.cfg["window_influence"])[2]
+                   for d, s, scale in (want_out, got_out)]
+        best_cpu, best_card = (int(np.argmax(p)) for p in pscores)
+        if best_cpu == best_card:
+            px = max(np.abs(got.pos - want.pos).max(), np.abs(got.sz - want.sz).max())
+            self.max_px = max(self.max_px, float(px))
+            if px > STATE_PX:
+                self.bad.append((self.frames, "px", float(px)))
+        else:
+            gap = float(pscores[0][best_cpu] - pscores[0][best_card])
+            self.ties += 1
+            if gap > TIE_PSCORE:
+                self.bad.append((self.frames, "pick", gap))
+        return want
+
+
+def read_boxes(results):
+    return {p.name: np.array(json.loads(p.read_text()))
+            for p in sorted(Path(results).glob("*_bb.json"))}
+
+
+def phase_trackers_path(device):
+    """`inference --model_type detector_heuristic` and `detector_tracker`
+    through the CLI on TRACKER_VIDEOS fixture videos of 300 frames (frames
+    from `fixture_video` swapped in for cv2's decode, no debug writer), each
+    with the launch counts read around it; then both again with `"device":
+    "cpu"`: the heuristic's boxes equal. The tracker's free runs are
+    compared and logged; its decisions are held on the same inputs by a
+    replay (`ReplayTracker`), since a near-tie between two anchors, picked
+    the other way once, moves every later frame of a free run. The tracker
+    counts the frames that ran the net and times each one's host crop and
+    the rest (the network on the card, the copy back, the host update)."""
+    import copy
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
+    from objectpermanence_tpu_torch.infer import trackers
+    from objectpermanence_tpu_torch.models import siam
+    from objectpermanence_tpu_torch.utils.checkpoint import save_params
+
+    work = WORK_DIR / "trackers_path"
+    shutil.rmtree(work, ignore_errors=True)
+    pred, labels, _ = write_fixture_dataset(work / "data", num_videos=TRACKER_VIDEOS,
+                                            seed=TRACKER_SEED)
+    videos = work / "videos"
+    videos.mkdir()
+    for p in sorted(pred.glob("*.pkl")):
+        (videos / f"{p.stem}.avi").touch()
+    model, _ = siam_seeded(device)
+    save_params(work / "siam.npz", model.state_dict())
+    trackers.read_video_bgr = lambda path: np.ascontiguousarray(
+        fixture_video(path, seed=TRACKER_SEED)[..., ::-1])
+    trackers.open_debug_writer = lambda path, width, height: None
+
+    timing = {"frames": 0, "crop_s": 0.0, "track_s": 0.0}
+    track, search = siam.SiamRPNTracker.track, siam.SiamRPNTracker.search
+
+    def timed_search(self, state, im):
+        t0 = time.perf_counter()
+        out = search(self, state, im)
+        timing["crop_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_track(self, state, im):
+        t0 = time.perf_counter()
+        out = track(self, state, im)
+        timing["track_s"] += time.perf_counter() - t0
+        timing["frames"] += 1
+        return out
+
+    results = {}
+    for model_type in ("detector_heuristic", "detector_tracker"):
+        for dev in ("cuda", "cpu"):
+            config = {"sample_dir": str(pred), "labels_dir": str(labels),
+                      "videos_dir": str(videos), "model_path": str(work / "siam.npz")}
+            if dev == "cpu":
+                config["device"] = "cpu"
+            (work / "inference.json").write_text(json.dumps(config))
+            out = work / f"{model_type}_{dev}"
+            timing.update(frames=0, crop_s=0.0, track_s=0.0)
+            siam.SiamRPNTracker.track, siam.SiamRPNTracker.search = timed_track, timed_search
+            read = reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rc = cli_main(["inference", "--model_type", model_type, "--results_dir",
+                               str(out), "--inference_config", str(work / "inference.json")])
+                torch.cuda.synchronize()
+            finally:
+                siam.SiamRPNTracker.track, siam.SiamRPNTracker.search = track, search
+            seconds = time.perf_counter() - t0
+            counts = read()
+            assert rc == 0, f"{model_type} CLI exit {rc}"
+            results[model_type, dev] = read_boxes(out)
+            net_frames = timing["frames"]
+            log("trackers_path", model=model_type, device=dev, videos=TRACKER_VIDEOS,
+                frames=FRAMES, seconds=f"{seconds:.3f}", net_frames=net_frames,
+                ms_per_net_frame=1e3 * timing["track_s"] / max(net_frames, 1),
+                crop_ms_per_net_frame=1e3 * timing["crop_s"] / max(net_frames, 1),
+                rest_ms_per_net_frame=1e3 * (timing["track_s"] - timing["crop_s"])
+                / max(net_frames, 1), launches=json.dumps(counts))
+            assert sum(counts.values()) == 0, f"{model_type} launched the port's kernels: {counts}"
+            assert len(results[model_type, dev]) == TRACKER_VIDEOS
+            if model_type == "detector_tracker":
+                assert net_frames >= 100 * TRACKER_VIDEOS, f"the net ran on {net_frames} frames"
+            else:
+                assert net_frames == 0
+    heuristic = results["detector_heuristic", "cuda"]
+    assert all(np.array_equal(heuristic[k], v)
+               for k, v in results["detector_heuristic", "cpu"].items())
+
+    # the card's decisions against the CPU's on the same inputs: the CPU's run
+    # again, in process, with the card's network beside it on every frame
+    import pickle
+    from objectpermanence_tpu_torch.models.siam import ObjectDetectWithSiamTracker
+    replay = ReplayTracker(siam.SiamRPNTracker(copy.deepcopy(model).cpu(), device="cpu"),
+                           siam.SiamRPNTracker(model, device=device))
+    for p in sorted(pred.glob("*.pkl")):
+        with open(p, "rb") as f:
+            dets = pickle.load(f)
+        frames = trackers.read_video_bgr(videos / f"{p.stem}.avi")
+        trackers.track_video(ObjectDetectWithSiamTracker(replay), dets, FRAMES,
+                             lambda t, _frames=frames: _frames[t])
+    card = np.stack(list(results["detector_tracker", "cuda"].values()))
+    cpu = np.stack(list(results["detector_tracker", "cpu"].values()))
+    diff = np.abs(card - cpu)
+    differ = (diff > 0).any(axis=2)
+    first = [int(np.argmax(row)) if row.any() else -1 for row in differ]
+    log("trackers_path_vs_cpu", replay_frames=replay.frames, replay_max_px=replay.max_px,
+        replay_other_picks=replay.ties, replay_failures=json.dumps(replay.bad[:5]),
+        free_run_px_max_diff=int(diff.max()), free_run_px_diff_share=float((diff > 0).mean()),
+        free_run_frames_differ=int(differ.sum()), free_run_first_differ=json.dumps(first),
+        distinct_boxes=len(np.unique(card.reshape(-1, 4), axis=0)))
+    assert card.shape == (TRACKER_VIDEOS, FRAMES, 4)
+    assert replay.frames >= 100 * TRACKER_VIDEOS and not replay.bad, \
+        f"detector_tracker's decisions on the card disagree with the CPU's: {replay.bad[:5]}"
+
+
+def phase_siam_train_path(device):
+    """`siam_train_main` at batch 32 on SIAM_PAIRS pairs that `_crop_pair`
+    cuts from fixture frames (the card's machine cannot decode video),
+    SIAM_HOLDOUT held out, 2 epochs, with the launch counts read around it;
+    then `build_siam_reasoner` from its checkpoint directory tracks one
+    fixture video through the CLI."""
+    from objectpermanence_tpu_torch.__main__ import main as cli_main
+    from objectpermanence_tpu_torch.train.siam_loop import siam_train_main
+    work = WORK_DIR / "siam_train_path"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    z, x, gt = siam_pairs(SIAM_PAIRS)
+    np.savez(work / "pairs.npz", z=z, x=x, gt=gt)
+    read = reset_launches()
+    t0 = time.perf_counter()
+    result = siam_train_main(work / "pairs.npz", work / "ckpt", num_epochs=SIAM_EPOCHS,
+                             batch_size=SIAM_BATCH, holdout=SIAM_HOLDOUT, print_step=1,
+                             device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read()
+    history = result["history"]
+    log("siam_train_path", pairs=SIAM_PAIRS, holdout=SIAM_HOLDOUT, batch=SIAM_BATCH,
+        epochs=SIAM_EPOCHS, seconds=f"{seconds:.3f}", launches=json.dumps(counts),
+        **{f"epoch{h['epoch']}_{k}": h[k] for h in history for k in ("mean_iou", "center_hit")})
+    assert [h["epoch"] for h in history] == list(range(1, SIAM_EPOCHS + 1))
+    assert all(np.isfinite(h["mean_iou"]) for h in history)
+    assert Path(result["checkpoint"]) == work / "ckpt" / "final.npz"
+    assert sum(counts.values()) == 0, f"SiamRPN training launched the port's kernels: {counts}"
+
+    data = WORK_DIR / "trackers_path"
+    name = sorted((data / "data" / "od_perception").glob("*.pkl"))[0].stem
+    (work / "sample.txt").write_text(f"{name}\n")
+    (work / "inference.json").write_text(json.dumps({
+        "sample_dir": str(data / "data" / "od_perception"), "videos_dir": str(data / "videos"),
+        "sample_file": str(work / "sample.txt"), "model_path": str(work / "ckpt")}))
+    rc = cli_main(["inference", "--model_type", "detector_tracker", "--results_dir",
+                   str(work / "tracked"), "--inference_config", str(work / "inference.json")])
+    boxes = read_boxes(work / "tracked")
+    assert rc == 0 and list(boxes) == [f"{name}_bb.json"], (rc, list(boxes))
+    assert boxes[f"{name}_bb.json"].shape == (FRAMES, 4)
+    log("siam_train_path_tracked", video=name, distinct_boxes=len(np.unique(
+        boxes[f"{name}_bb.json"], axis=0)))
+
+
+def phase_siam_step_profile(device, smi, steps=10):
+    """A SiamRPN train step at batch 32 (127 and 271 crops, forward to the
+    SGD update and the BN EMA) and `track_forward` at batch 1 (one hidden
+    frame's network), each the mean of `steps` calls by CUDA events, then a
+    torch.profiler window of each with the device's busy share and its
+    leading kernels."""
+    from objectpermanence_tpu_torch.train import siam_loop
+    model, frames = siam_seeded(device)
+    z, x, gt = (torch.from_numpy(a).to(device) for a in siam_pairs(SIAM_BATCH))
+    z, x = z.permute(0, 3, 1, 2).float().contiguous(), x.permute(0, 3, 1, 2).float().contiguous()
+    step = siam_loop.make_siam_train_step(
+        siam_loop.make_siam_optimizer(model),
+        siam_loop.warmup_cosine_schedule(0.0, 5e-3, 10, 100, 5e-5))
+    generator = torch.Generator(device).manual_seed(SIAM_SEED)
+    model.train()
+    train_ms = time_ms(lambda: step(model, z, x, gt, generator), iters=steps)
+    train_busy, train_top = profile_top(lambda: step(model, z, x, gt, generator), calls=3)
+    model.eval()
+    with torch.inference_mode():
+        kernels = model.temple(siam_crop(frames[2], 127, 90).to(device))
+        search = siam_crop(frames[4], 271, 190).to(device)
+        track_ms = time_ms(lambda: model.track_forward(kernels, search), iters=steps * 5)
+        track_busy, track_top = profile_top(lambda: model.track_forward(kernels, search),
+                                            calls=5)
+    log("siam_step_profile", train_batch=SIAM_BATCH, train_step_ms=train_ms,
+        train_pairs_per_s=SIAM_BATCH / (train_ms / 1e3), train_busy_share=train_busy,
+        train_top_ms=json.dumps(train_top), track_forward_ms=track_ms,
+        track_busy_share=track_busy, track_top_ms=json.dumps(track_top), card=repr(smi))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2526,6 +2912,11 @@ def main() -> int:
         step_ms[label] = phase_detector_train_step_profile(
             device, train_set, recipe=train800_recipe(dtype), batch=TRAIN800_BATCH, label=label)
     log("detector_train_steps", step_ms=json.dumps(step_ms))
+    # the programmed models and SiamRPN, after the kernels' timing windows
+    phase_siam_vs_plain(device)
+    phase_trackers_path(device)
+    phase_siam_train_path(device)
+    phase_siam_step_profile(device, smi)
     print(smi, flush=True)  # again, so that the output's end names the card and its limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),

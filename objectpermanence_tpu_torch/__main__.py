@@ -4,8 +4,8 @@ The same subcommands and flags as the JAX package's `main.py`: `inference`
 and `training` of every learned model, `preprocess` (the Faster R-CNN
 detector over videos), `analysis` (IoU and mAP of a predictions directory
 as a CSV) and `cater_inference` (the 36-way grid class of each video's last
-box). The two programmed models (`detector_tracker`, `detector_heuristic`)
-are not ported yet: their `inference` exits non-zero saying so.
+box). `inference` of the two programmed models (`detector_tracker`,
+`detector_heuristic`) runs `infer/trackers.py` and needs no `--model_config`.
 """
 
 import argparse
@@ -14,7 +14,7 @@ import sys
 from typing import Any, Dict
 
 from objectpermanence_tpu_torch.models.registry import (
-    INFERENCE_SUPPORTED_MODELS, TRAINING_SUPPORTED_MODELS, get_model_spec,
+    INFERENCE_SUPPORTED_MODELS, PROGRAMMED_MODELS, TRAINING_SUPPORTED_MODELS, get_model_spec,
 )
 
 
@@ -96,14 +96,13 @@ def main(argv=None) -> int:
         cater_setup_inference(args.model_type, args.results_dir,
                               _load_json(args.inference_config), _load_json(args.model_config))
         return 0
-    try:
-        spec = get_model_spec(args.model_type)
-    except NotImplementedError as exc:
-        print(f"{mode} for {args.model_type}: not yet ported ({exc})", file=sys.stderr)
-        return 2
-
     if mode == "training":
-        return _training(args, spec)
+        return _training(args, get_model_spec(args.model_type))
+    if args.model_type in PROGRAMMED_MODELS:
+        from objectpermanence_tpu_torch.infer.trackers import trackers_inference_main
+        trackers_inference_main(args.model_type, args.results_dir,
+                                _load_json(args.inference_config))
+        return 0
     if args.model_config is None:
         parser.error("inference of a learned model needs --model_config")
     from objectpermanence_tpu_torch.infer.reasoning import reasoning_inference_main

@@ -21,7 +21,7 @@ from objectpermanence_tpu_torch.config import config_device, inference_config_fr
 from objectpermanence_tpu_torch.data.ingest import IngestedDataset, batches, ingest_directory
 from objectpermanence_tpu_torch.models.reasoning import OPNet
 from objectpermanence_tpu_torch.models.registry import ModelSpec, init_model, model_class
-from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+from objectpermanence_tpu_torch.ops.boxes import FRAME_SHAPES, denormalize_boxes
 
 
 def fused_opnet_eligible(model_name: str) -> bool:
@@ -83,11 +83,44 @@ def predict_dataset(spec: ModelSpec, model, dataset: IngestedDataset, batch_size
     return results
 
 
+def write_debug_video(video_path, out_path, predictions: np.ndarray,
+                      labels: np.ndarray) -> None:
+    """The prediction (yellow) and ground truth (blue) drawn on each frame of
+    `video_path` into `out_path` (mp4v, 30 fps), as the reference renders
+    them (`inference_main.py:227-254`). Needs cv2."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(video_path))
+    if not cap.isOpened():
+        raise RuntimeError(f"Unable to open video {video_path}")
+    # cv2 reports one spurious extra frame (`tracking_utils.py:27-30`)
+    num_valid = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) - 1
+    writer = None
+    for frame_idx in range(min(num_valid, len(predictions))):
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if writer is None:
+            h, w = frame.shape[:2]
+            writer = cv2.VideoWriter(str(out_path), cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+        p = predictions[frame_idx]
+        g = labels[frame_idx]
+        cv2.rectangle(frame, (int(p[0]), int(p[1])), (int(p[2]), int(p[3])), (0, 255, 255), 3)
+        cv2.rectangle(frame, (int(g[0]), int(g[1])), (int(g[2]), int(g[3])), (255, 0, 0), 3)
+        writer.write(frame)
+    cap.release()
+    if writer is not None:
+        writer.release()
+
+
 def reasoning_inference_main(model_name: str, results_dir: str, inference_config,
                              model_config: Dict, device=None) -> Dict[str, np.ndarray]:
     """Full inference run: ingest -> batched forward -> per-video
-    `<name>_bb.json` predictions. `device` defaults to the config's:
-    "cpu" is the CPU, anything else (the shipped "tpu" too) the card."""
+    `<name>_bb.json` predictions, and a debug video of each one whose
+    `<videos_dir>/<name>.avi` exists (only those named in `sample_file`,
+    when given; reference `get_experiment_videos`, `inference_main.py:22-41`).
+    `device` defaults to the config's: "cpu" is the CPU, anything else (the
+    shipped "tpu" too) the card."""
     cfg = inference_config_from(inference_config)
     device = resolve_device(config_device(cfg.device) if device is None else device)
 
@@ -99,9 +132,17 @@ def reasoning_inference_main(model_name: str, results_dir: str, inference_config
     results_dir.mkdir(parents=True, exist_ok=True)
 
     predictions = predict_dataset(spec, model, dataset, cfg.batch_size, device)
+    labels_px = (dataset.labels * np.asarray(FRAME_SHAPES, dtype=np.float32)).astype(np.int32)
+    labels_by_name = dict(zip(dataset.names, labels_px))
+    debug_names = set(predictions)
+    if cfg.sample_file:
+        with open(cfg.sample_file) as f:
+            debug_names &= {Path(line.strip()).stem for line in f if line.strip()}
     for name, boxes in predictions.items():
         write_bb_predictions(name, results_dir, boxes)
-    if cfg.videos_dir:
-        print("note: debug videos (videos_dir) are not ported yet; "
-              "see ROADMAP.md, Next slices, item 4")
+        if cfg.videos_dir and name in debug_names:
+            video_path = Path(cfg.videos_dir) / f"{name}.avi"
+            if video_path.exists():
+                write_debug_video(video_path, results_dir / f"{name}_results.avi", boxes,
+                                  labels_by_name[name])
     return predictions

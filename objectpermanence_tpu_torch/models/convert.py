@@ -13,6 +13,10 @@ included.
 `state_dict_from_reference` renames and transposes a reference-trained
 `.pth` state_dict (`baselines/learned_models.py`'s layer names), as the JAX
 package's `models/convert_reasoning.py` does.
+
+The SiamRPN tracker (`models/siam.py`) keeps the upstream `SiamRPNvot`
+names, so `siam_params_from_jax` maps JAX's tree onto them and
+`siam_state_dict_from_reference` only checks an upstream blob's keys.
 """
 
 from collections import OrderedDict
@@ -150,3 +154,47 @@ def state_dict_from_reference(model_name: str, state_dict: Dict[str, Any],
                              f"{tuple(template[key].shape)} — model config mismatch with the "
                              f"checkpoint")
     return OrderedDict((key, value.contiguous()) for key, value in ref.out.items())
+
+
+# (conv, batch norm) indices of the SiamRPN feature layers, `models/siam.py`
+_SIAM_FEATURES = ((0, 1), (4, 5), (8, 9), (11, 12), (14, 15))
+_SIAM_HEADS = ("conv_r1", "conv_r2", "conv_cls1", "conv_cls2", "regress_adjust")
+_SIAM_BN = (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+            ("running_var", "var"))
+
+
+def siam_params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX SiamRPN tree (`objectpermanence_tpu/models/siam.py::siam_init`'s
+    layout, numpy leaves) -> the port's `SiamRPN` state_dict: feature layer
+    i's `conv` -> `featureExtract.<c>.weight`, its batch norm's `scale`,
+    `bias`, `mean`, `var` -> `featureExtract.<b>.weight`, `.bias`,
+    `.running_mean`, `.running_var`; each head's `w`, `b` -> `<head>.weight`,
+    `.bias`. Values and dtypes cross exactly (both are OIHW)."""
+    def t(x):
+        return torch.from_numpy(np.array(x, copy=True))
+
+    out = OrderedDict()
+    for layer, (conv_i, bn_i) in zip(params["features"], _SIAM_FEATURES):
+        out[f"featureExtract.{conv_i}.weight"] = t(layer["conv"])
+        for ours, theirs in _SIAM_BN:
+            out[f"featureExtract.{bn_i}.{ours}"] = t(layer["bn"][theirs])
+    for name in _SIAM_HEADS:
+        out[f"{name}.weight"] = t(params[name]["w"])
+        out[f"{name}.bias"] = t(params[name]["b"])
+    return out
+
+
+def siam_state_dict_from_reference(state_dict: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """The upstream `SiamRPNvot` state_dict (`SiamRPNVOT.model`) -> the port's
+    `SiamRPN` state_dict: the same names, as float32, without batch norm's
+    `num_batches_tracked`. Any missing or extra tensor raises, as JAX's
+    `convert_torch_state_dict` raises on a missing one."""
+    want = [f"featureExtract.{c}.weight" for c, _ in _SIAM_FEATURES]
+    want += [f"featureExtract.{b}.{ours}" for _, b in _SIAM_FEATURES for ours, _ in _SIAM_BN]
+    want += [f"{name}.{part}" for name in _SIAM_HEADS for part in ("weight", "bias")]
+    given = {k: v for k, v in state_dict.items() if not k.endswith("num_batches_tracked")}
+    missing, extra = sorted(set(want) - set(given)), sorted(set(given) - set(want))
+    if missing or extra:
+        raise ValueError(f"not a SiamRPNvot state_dict: missing {missing}, unexpected {extra}")
+    return OrderedDict((k, torch.as_tensor(np.asarray(given[k])).to(torch.float32).contiguous())
+                       for k in want)

@@ -1,7 +1,7 @@
 """Model registry, the counterpart of `objectpermanence_tpu/models/registry.py`:
 the same name lists, and the factory for every learned model. The two
-programmed models (`detector_tracker`, `detector_heuristic`) raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+programmed models (`detector_tracker`, `detector_heuristic`) have no spec:
+`infer/trackers.py` runs them.
 """
 
 from dataclasses import dataclass
@@ -35,13 +35,6 @@ INFERENCE_SUPPORTED_MODELS = PROGRAMMED_MODELS + TRAINING_SUPPORTED_MODELS
 DOUBLE_OUTPUT_MODELS = TRAINING_SUPPORTED_MODELS_6_TRACKS
 
 NO_LABELS_MODELS = [m for m in TRAINING_SUPPORTED_MODELS if m.endswith("_no_labels")]
-
-# where each model that is not ported yet is planned (ROADMAP.md, "Next slices")
-_NOT_PORTED = {
-    "detector_tracker": "Next slices, item 6 (trackers and the heuristic)",
-    "detector_heuristic": "Next slices, item 6 (trackers and the heuristic)",
-}
-
 
 @dataclass(frozen=True)
 class ModelSpec:
@@ -84,9 +77,6 @@ def get_model_spec(name: str, config: Optional[Dict] = None) -> ModelSpec:
     `reference_compat` (transformer_lstm), `moe_balance_weight` (opnet_moe,
     else 0.01) and `att_ce_weight` (opnet_att_ce, else 1.0)."""
     base = _base_name(name)
-    if base in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet: see ROADMAP.md, {_NOT_PORTED[base]}")
     if base not in _ARCHS:
         raise ValueError(f"Unknown model name: {name!r}; supported: {TRAINING_SUPPORTED_MODELS}")
     config = config or {}

@@ -1,10 +1,11 @@
 """CATER class vocabulary: 193 `size_color_shape_material` classes.
 
-The port's own copy of `objectpermanence_tpu/vocab.py` (the part this
-slice needs). Indices are assigned in blocks of (size, material), each
+The port's own copy of `objectpermanence_tpu/vocab.py`. Indices are assigned in blocks of (size, material), each
 block sorted by (color, shape); the gold "spl" snitch shape exists only for
 (small, metal) and lands at index 140.
 """
+
+from functools import lru_cache
 
 import numpy as np
 
@@ -46,3 +47,15 @@ SNITCH_TRACK_NAME = "small_gold_spl_metal_Spl_0"
 IS_CONE = np.array(
     ["_cone_" in OBJECTS_IDX_TO_NAME[i] for i in range(NUM_CLASSES)], dtype=bool
 )
+
+
+def is_cone_object(idx: int) -> int:
+    return int(IS_CONE[idx])
+
+
+@lru_cache(maxsize=None)
+def large_cone_indices() -> tuple:
+    """Class ids of the large cones: the trackers' box for a hidden snitch
+    sits 15 px lower under one (reference `baselines/inference_main.py:18`)."""
+    return tuple(i for i in range(NUM_CLASSES)
+                 if OBJECTS_IDX_TO_NAME[i].startswith("large_") and IS_CONE[i])

@@ -145,15 +145,35 @@ def test_cli_inference_on_cpu(fixture_data, tmp_path):
     ["inference", "--model_type", "detector_tracker", "--results_dir", "r",
      "--inference_config", "i"],
 ])
-def test_cli_modes_not_ported_exit_nonzero(argv, capsys):
-    assert port_main(argv) != 0
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_modes_not_ported_exit_nonzero(argv, fixture_data, tmp_path):
+    """Every model name now runs: the programmed models go to
+    `infer/trackers.py` without a --model_config. The heuristic writes a box
+    per frame of each fixture video; detector_tracker with no video raises
+    FileNotFoundError, as JAX's `trackers_inference_main` does."""
+    pred_dir, labels_dir, _ = fixture_data
+    (tmp_path / "i").write_text(json.dumps({"sample_dir": str(pred_dir),
+                                            "labels_dir": str(labels_dir), "device": "cpu"}))
+    argv = [str(tmp_path / a) if a in ("r", "i") else a for a in argv]
+    if argv[2] == "detector_tracker":
+        with pytest.raises(FileNotFoundError, match="needs raw video pixels"):
+            port_main(argv)
+        return
+    assert port_main(argv) == 0
+    outputs = sorted((tmp_path / "r").glob("*_bb.json"))
+    assert len(outputs) == 8 and len(json.loads(outputs[0].read_text())) == 300
 
 
 @pytest.mark.parametrize("name", ["detector_tracker", "detector_heuristic"])
 def test_registry_names_roadmap_item_for_unported_models(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The programmed models have no learned-model spec, in the port as in
+    JAX: both registries raise ValueError for them."""
+    from objectpermanence_tpu.models.registry import get_model_spec as jax_get_model_spec
+    from objectpermanence_tpu_torch.models.registry import INFERENCE_SUPPORTED_MODELS
+    assert name in INFERENCE_SUPPORTED_MODELS
+    with pytest.raises(ValueError, match="Unknown model name"):
         get_model_spec(name)
+    with pytest.raises(ValueError, match="Unknown model name"):
+        jax_get_model_spec(name)
 
 
 def test_registry_opnet_family():

@@ -2,9 +2,9 @@
 entry points run on the card unless asked for the CPU.
 
 Each check runs in a fresh interpreter where `import jax` (and orbax, cv2,
-which only `read_video_frames` imports, at its first call, and PIL, which
-only `DetectionDataset.load_image` imports) is made to fail, so such an
-import anywhere in the port would break it.
+which only the functions that decode, draw or write video import, at their
+first call, and PIL, which only `DetectionDataset.load_image` imports) is
+made to fail, so such an import anywhere in the port would break it.
 """
 
 import os
@@ -146,6 +146,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
             json.dump(training, f)
         with open("model.json", "w") as f:
             json.dump(config, f)
+        with open("tracker.json", "w") as f:   # no "device": the card
+            json.dump({"sample_dir": "s"}, f)
+        from objectpermanence_tpu_torch.infer.trackers import trackers_inference_main
+        from objectpermanence_tpu_torch.models.siam import SiamRPNTracker
+        from objectpermanence_tpu_torch.train.siam_loop import siam_train_main
         calls = [lambda: make_predict_step(spec),
                  lambda: init_model("opnet", config),
                  lambda: init_model("opnet", config, train=True),
@@ -160,7 +165,13 @@ def test_entry_points_raise_without_a_card(tmp_path):
                  lambda: cli_main(["preprocess", "--results_dir", "out", "--config",
                                    "preprocess.json"]),
                  lambda: train_detector(det_data, None, DetectorConfig()),
-                 lambda: train_detector(det_data, None, DetectorConfig(), device="cuda")]
+                 lambda: train_detector(det_data, None, DetectorConfig(), device="cuda"),
+                 lambda: trackers_inference_main("detector_tracker", "out", {"sample_dir": "s"}),
+                 lambda: cli_main(["inference", "--model_type", "detector_tracker",
+                                   "--results_dir", "out", "--inference_config",
+                                   "tracker.json"]),
+                 lambda: SiamRPNTracker(),
+                 lambda: siam_train_main("pairs.npz", "ckpt")]
         for call in calls:
             try:
                 call()
@@ -251,6 +262,53 @@ def test_800px_windowed_bf16_path_runs_without_jax(tmp_path):
         assert boxes.dtype == np.float32 and boxes.shape == (2, 5, 4)
         assert roi_align_window.contract_stats()["rois"] == 40
         assert sys.modules["jax"] is None
+        leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
+        assert not leaked, leaked
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")
+
+
+def test_trackers_run_without_jax_or_cv2(tmp_path):
+    """The heuristic through the CLI, and detector_tracker on the CPU with
+    its frame reader and debug writer replaced (as on a machine without
+    cv2), and `siam_train_main` on pairs that `_crop_pair` cuts, all with
+    jax, orbax and cv2 failing to import."""
+    out = _run("""
+        import json
+        from pathlib import Path
+        import numpy as np
+        from objectpermanence_tpu_torch.__main__ import main as cli_main
+        from objectpermanence_tpu_torch.data.fixtures import (
+            draw_frames, make_scene, write_fixture_dataset)
+        from objectpermanence_tpu_torch.infer import trackers
+        from objectpermanence_tpu_torch.train import siam_loop
+        pred, labels, _ = write_fixture_dataset("data", num_videos=2, seed=4, num_frames=30)
+        json.dump({"sample_dir": str(pred), "labels_dir": str(labels)}, open("h.json", "w"))
+        assert cli_main(["inference", "--model_type", "detector_heuristic", "--results_dir",
+                         "heuristic", "--inference_config", "h.json"]) == 0
+        assert len(json.loads(Path("heuristic/CATER_fixture_000001_bb.json").read_text())) == 30
+        Path("videos").mkdir()
+        for name in ("CATER_fixture_000000", "CATER_fixture_000001"):
+            (Path("videos") / f"{name}.avi").touch()
+        trackers.read_video_bgr = lambda path: draw_frames(
+            make_scene(4000 + int(Path(path).stem[-1]), num_frames=30))[..., ::-1]
+        trackers.open_debug_writer = lambda path, width, height: None
+        boxes = trackers.trackers_inference_main(
+            "detector_tracker", "tracked", {"sample_dir": str(pred), "videos_dir": "videos",
+                                            "device": "cpu"})
+        assert sorted(boxes) == ["CATER_fixture_000000", "CATER_fixture_000001"]
+        assert all(len(v) == 30 for v in boxes.values())
+        frames = draw_frames(make_scene(1, num_frames=4))
+        rng = np.random.RandomState(0)
+        pairs = [siam_loop._crop_pair([frames[0], frames[2]], (100, 80, 20, 16),
+                                      (104, 82, 20, 16), rng) for _ in range(3)]
+        np.savez("pairs.npz", z=np.stack([p[0] for p in pairs]),
+                 x=np.stack([p[1] for p in pairs]), gt=np.stack([p[2] for p in pairs]))
+        result = siam_loop.siam_train_main("pairs.npz", "ckpt", num_epochs=2, batch_size=2,
+                                           holdout=1, device="cpu")
+        assert Path(result["checkpoint"]).exists() and len(result["history"]) == 2
+        assert sys.modules["cv2"] is None and sys.modules["jax"] is None
         leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
         assert not leaked, leaked
         print("ok")

@@ -3,7 +3,9 @@ fused OPNet forward (K1), the LSTM recurrence forward, backward and
 forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
 one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
 the bf16 modes of K1, K7, K8 and K9; the five reasoning models beside OPNet
-on the LSTM kernels, `StackedLSTM`'s launches, and `bench_torch.py`.
+on the LSTM kernels, `StackedLSTM`'s launches, and `bench_torch.py`; the
+SiamRPN tracker (library convs, no kernel of the port) on the card against
+the CPU.
 
 Marked `gpu`; without a CUDA card each test skips (decided inside the
 test). On a machine with an H100 and the CUDA toolkit:
@@ -39,6 +41,17 @@ with `launch_plan`'s plan. K1's bf16 mode is held as K1 against its
 plain bf16 loop. K8's bf16 mode rounds float32 sums taken in another order
 than the plain version's, so its dF is held within one bf16 ulp of max
 |reference|.
+SiamRPN's `temple` kernels and `track_forward` outputs are held at 1e-4 x
+max(1, max |CPU's|) (cuDNN's and the CPU's float32 convs sum in another
+order); one train step's gradients at batch 8 with fixed masks are held
+against the CPU's float64 gradient: the card's float32 gradient no farther
+from it (each tensor's distance over max(1, max |g|)) than twice the CPU's
+float32 gradient is, since float32 itself is 1e-2 from it (batch-statistics
+batch norm over features with large means cancels); the tracker over a
+300-frame fixture video, replayed on the CPU's trajectory, makes each hidden
+frame's update on the card within 0.1 px of the CPU's, or, where the two
+networks pick different anchors, a pick whose penalized score is within 1e-4
+of the CPU's best (a near-tie), with none of the port's kernels launched.
 """
 
 from pathlib import Path
@@ -1151,3 +1164,122 @@ def test_roi_align_backward_no_rois_writes_zeros(dtype):
     assert rk.roi_align_batched_backward.launches == before
     assert [tuple(g.shape) for g in got] == [(2, 96, h, w) for h, w in NATIVE_SHAPES]
     assert all(g.dtype == getattr(torch, dtype) and not g.any() for g in got)
+
+
+def _calibrated_siam(seed=0):
+    """A seeded SiamRPN whose running statistics are fixture crops' batch
+    statistics, so its scores do not saturate; with the crops' frames."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models import siam
+    from objectpermanence_tpu_torch.train import siam_loop
+    frames = draw_frames(make_scene(seed + 30, num_frames=8), seed=seed)
+    z = np.stack([siam.get_subwindow(f, (160, 120), 100, 127, f.mean((0, 1))) for f in frames])
+    x = np.stack([siam.get_subwindow(f, (160, 120), 200, 271, f.mean((0, 1))) for f in frames])
+    model = siam_loop.siam_train_init(torch.Generator().manual_seed(seed))
+    siam_loop.calibrate_batch_norm(model, torch.from_numpy(z).permute(0, 3, 1, 2).float(),
+                                   torch.from_numpy(x).permute(0, 3, 1, 2).float())
+    return model, frames
+
+
+def _siam_close(got, want):
+    return (got.cpu() - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance", [271, 287])
+def test_siam_forward_on_card_matches_cpu(instance):
+    import copy
+    from objectpermanence_tpu_torch.models import siam
+    device = _card()
+    cpu, frames = _calibrated_siam()
+    card = copy.deepcopy(cpu).to(device).eval()
+    cpu.eval()
+    z = siam.get_subwindow(frames[3], (150, 110), 90, 127, frames[3].mean((0, 1)))
+    x = siam.get_subwindow(frames[4], (150, 110), 190, instance, frames[4].mean((0, 1)))
+    z = torch.from_numpy(z).permute(2, 0, 1)[None].float()
+    x = torch.from_numpy(x).permute(2, 0, 1)[None].float()
+    with torch.inference_mode():
+        want_k = cpu.temple(z)
+        want = cpu.track_forward(want_k, x)
+        got_k = card.temple(z.to(device))
+        got = card.track_forward(got_k, x.to(device))
+    for a, b in zip((*got_k, *got), (*want_k, *want)):
+        assert a.device.type == "cuda" and _siam_close(a, b)
+
+
+@pytest.mark.gpu
+def test_siam_train_step_gradients_on_card_match_cpu():
+    import copy
+    from objectpermanence_tpu_torch.train import siam_loop
+    device = _card()
+    cpu, _ = _calibrated_siam(1)
+    rng = np.random.RandomState(0)
+    z = torch.from_numpy(rng.randint(0, 256, (8, 3, 127, 127)).astype(np.float32))
+    x = torch.from_numpy(rng.randint(0, 256, (8, 3, 271, 271)).astype(np.float32))
+    gt = torch.from_numpy(np.column_stack([rng.uniform(-30, 30, (8, 2)),
+                                           rng.uniform(20, 80, (8, 2))]).astype(np.float32))
+    _, xyxy = siam_loop.anchor_arrays()
+    draws = torch.from_numpy(rng.uniform(0, 1, (2, 8, xyxy.shape[0])).astype(np.float32))
+    masks = siam_loop.siam_pair_masks(gt, xyxy, draws[0], draws[1])
+    grads = {}
+    for dev, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (device, torch.float32)):
+        model = copy.deepcopy(cpu).to(dev, dtype)
+        delta, score, _ = siam_loop.pair_forward_train(model, z.to(dev, dtype), x.to(dev, dtype))
+        cxcywh, _ = siam_loop.anchor_arrays(dev)
+        cls_l, reg_l = siam_loop.siam_pair_loss(delta, score, gt.to(dev, dtype), cxcywh.to(dtype),
+                                                *(m.to(dev) for m in masks))
+        (cls_l.mean() + reg_l.mean()).backward()
+        grads[str(dev), dtype] = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+    exact = grads["cpu", torch.float64]
+
+    def distance(tag):
+        return max((g - exact[n]).abs().max().item() / max(1.0, exact[n].abs().max().item())
+                   for n, g in grads[tag, torch.float32].items())
+
+    assert distance(str(device)) <= 2.0 * distance("cpu")
+
+
+@pytest.mark.gpu
+def test_tracker_over_a_fixture_video_matches_cpu():
+    import copy
+    from dataclasses import replace
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.infer import trackers
+    from objectpermanence_tpu_torch.models import siam
+    device = _card()
+    model, _ = _calibrated_siam(2)
+    cpu = siam.SiamRPNTracker(copy.deepcopy(model), device="cpu")
+    card = siam.SiamRPNTracker(model, device=device)
+    scene = make_scene(9)
+    frames = draw_frames(scene, seed=9)[..., ::-1]
+    visible = scene["visible"]
+    dets = {"bb": [scene["boxes"][t, visible[t]].astype(np.float32) for t in range(300)],
+            "labels": [scene["classes"][visible[t]].astype(np.int64) for t in range(300)]}
+    checked = {"frames": 0, "bad": []}
+
+    class Replay:
+        def init(self, im, pos, sz):
+            self.card_kernels = card.init(im, pos, sz).kernels
+            return cpu.init(im, pos, sz)
+
+        def track(self, state, im):
+            outs = [cpu.forward(state, im),
+                    card.forward(replace(state, kernels=self.card_kernels), im)]
+            want, got = (cpu.update(state, *out) for out in outs)
+            pscore = [siam.penalized_scores(d, s, state.anchors, state.window, state.sz * scale,
+                                            0.04, 0.44)[2] for d, s, scale in outs]
+            best = [int(np.argmax(p)) for p in pscore]
+            checked["frames"] += 1
+            if best[0] != best[1]:
+                if pscore[0][best[0]] - pscore[0][best[1]] > 1e-4:
+                    checked["bad"].append(checked["frames"])
+            elif max(np.abs(got.pos - want.pos).max(), np.abs(got.sz - want.sz).max()) > 0.1:
+                checked["bad"].append(checked["frames"])
+            return want
+
+    before = opnet_fused_forward.launches + lstm_scan_hs.launches
+    trackers.track_video(siam.ObjectDetectWithSiamTracker(Replay()), dets, 300,
+                         lambda t: frames[t])
+    torch.cuda.synchronize()
+    assert opnet_fused_forward.launches + lstm_scan_hs.launches == before
+    assert checked["frames"] >= 100 and not checked["bad"], checked
