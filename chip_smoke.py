@@ -34,7 +34,13 @@ models through the CLI (`detector_heuristic` and `detector_tracker` on
 fixture videos, against their CPU runs), trains SiamRPN with
 `siam_train_main` and tracks a video from its checkpoint, profiles its train
 step and its per-frame network (all of which launch none of the port's
-kernels: SiamRPN is library convs), times every kernel beside its
+kernels: SiamRPN is library convs), builds the native ingest library and
+ingests 64 simulated 300-frame videos (the port's simulator and perfect
+perception) natively and in Python (arrays equal, both host times), trains
+the shipped OPNet an epoch on them under a one-rank NCCL process group (DDP,
+`training_main(mesh=make_mesh())`; K2/K3/K4) and without one (within 1e-6),
+runs an FSDP2 step and the dettrain detector's step under DDP (K7/K8), each
+against its single-device twin and timed beside it, times every kernel beside its
 bound, its plain version and a library yardstick where there is one, and
 prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -44,6 +50,7 @@ result. Imports nothing of JAX.
 """
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -1201,7 +1208,7 @@ def detector_setup(device):
 
 
 def fixture_video(path, seed=DETECTOR_SEED):
-    """Stands in for `read_video_frames` (the card's machine has no cv2):
+    """Stands in for `read_video_frames` (no video file or codec needed):
     the 300 frames of fixture video `CATER_fixture_<v>`, its `make_scene`
     scene drawn by `draw_frames`."""
     from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
@@ -2853,6 +2860,306 @@ def phase_siam_step_profile(device, smi, steps=10):
         track_busy_share=track_busy, track_top_ms=json.dumps(track_top), card=repr(smi))
 
 
+# the data-parallel paths: 64 simulated 300-frame videos (48 train, 16 dev; the
+# simulator's scenes through perfect perception), ingested both ways, then the
+# shipped OPNet trained an epoch on them under a world-1 NCCL process group and
+# without one, an FSDP2 step and the dettrain detector's step under DDP
+SIM_TRAIN, SIM_DEV, SIM_SEED = 48, 16, 7
+DP_RTOL = 1e-6       # DDP at world 1 against no process group: losses, mIoU, params
+ADAM_ATOL, GRAD_FLOOR = 1e-5, 1e-7   # an Adam step's params where |g| >= 1e-7
+DP_STEPS = 10        # steps timed per variant
+DET_DP_NOISE = 10    # DDP's detector step against the plain one: times plain vs plain
+
+
+def host_cpu():
+    """The host's CPU as lscpu names it: vendor, model name, family/model, CPUs."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    return ", ".join(f"{key} {fields[key].strip()}" for key in
+                     ("Vendor ID", "Model name", "CPU family", "Model", "CPU(s)") if key in fields)
+
+
+def phase_native_ingest():
+    """Build the native ingest library from the checkout, simulate the
+    videos with the port's simulator and perfect perception, and ingest each
+    split natively and in Python: arrays equal (np.array_equal), both host
+    times, the pad + oracle part alone too. Returns the splits' paths."""
+    import pickle
+
+    from objectpermanence_tpu_torch.data import ingest
+    from objectpermanence_tpu_torch.datagen.perfect_perception import PerfectPerceptionGenerator
+    from objectpermanence_tpu_torch.datagen.scene_labels import write_annotation_files
+    from objectpermanence_tpu_torch.datagen.simulator import simulate_dataset
+    from objectpermanence_tpu_torch.native import build as native_build
+    from objectpermanence_tpu_torch.vocab import IS_CONE
+
+    work = WORK_DIR / "native_ingest"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    library = native_build.build()
+    build_s = time.perf_counter() - t0
+    splits, sim_s, perception_s = {}, 0.0, 0.0
+    for split, count, seed in (("train", SIM_TRAIN, SIM_SEED), ("dev", SIM_DEV, SIM_SEED + 1)):
+        t0 = time.perf_counter()
+        scenes, labels = simulate_dataset(work / split, num_videos=count, seed=seed,
+                                          num_frames=FRAMES)
+        sim_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = PerfectPerceptionGenerator(scenes, labels, work / split / "perception").generate()
+        perception_s += time.perf_counter() - t0
+        assert len(written) == count, f"{len(written)} perception pickles of {count}"
+        annotations = write_annotation_files(scenes, work / split / "annotations")
+        splits[split] = (work / split / "perception", labels, annotations["containment"])
+    times = {"native": 0.0, "python": 0.0}
+    core = {"native": 0.0, "python": 0.0}
+    for split, paths in splits.items():
+        got = {}
+        for way in times:
+            t0 = time.perf_counter()
+            got[way] = ingest.ingest_directory(*paths[:2], 6, paths[2], native=way == "native")
+            times[way] += time.perf_counter() - t0
+        for key in ("boxes", "index_to_track", "labels", "containment_mask"):
+            assert np.array_equal(getattr(got["native"], key), getattr(got["python"], key)), \
+                f"native and Python ingest differ in {split} {key}"
+        assert got["native"].boxes.shape == (len(got["native"]), FRAMES, 15, 6)
+        assert (got["native"].index_to_track != 0).any(), "no containment carrier"
+        preds = [pickle.loads(p.read_bytes()) for p in sorted(paths[0].glob("*.pkl"))]
+        for way, (pad, oracle) in {
+                "native": (lambda b, l: native_build.native_pad_video(b, l, 6, IS_CONE),
+                           native_build.native_containment_oracle),
+                "python": (lambda b, l: ingest.pad_video_detections(b, l, 6),
+                           ingest.containment_oracle)}.items():
+            t0 = time.perf_counter()
+            for pred in preds:
+                oracle(pad(pred["bb"], pred["labels"]), 6)
+            core[way] += time.perf_counter() - t0
+    videos = SIM_TRAIN + SIM_DEV
+    log("native_ingest", host_cpu=repr(host_cpu()), cpus=len(os.sched_getaffinity(0)),
+        library=library.relative_to(REPO), build_s=f"{build_s:.3f}", videos=videos,
+        frames=FRAMES, simulate_s=f"{sim_s:.3f}", perfect_perception_s=f"{perception_s:.3f}",
+        ingest_native_s=f"{times['native']:.4f}", ingest_python_s=f"{times['python']:.4f}",
+        ingest_speedup=f"{times['python'] / times['native']:.2f}",
+        pad_oracle_native_ms_per_video=f"{core['native'] * 1e3 / videos:.4f}",
+        pad_oracle_python_ms_per_video=f"{core['python'] * 1e3 / videos:.4f}",
+        pad_oracle_speedup=f"{core['python'] / core['native']:.2f}", arrays_equal=True)
+    return splits
+
+
+def world_one_nccl():
+    """A real NCCL process group of one rank, started in this process (no
+    port: a HashStore), and its (data, model) mesh."""
+    import torch.distributed as dist
+    from objectpermanence_tpu_torch.parallel.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return make_mesh()
+
+
+def rel_diff(a, b):
+    a, b = torch.as_tensor(a, dtype=torch.float64), torch.as_tensor(b, dtype=torch.float64)
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def opnet_step_setup(device):
+    """The shipped OPNet from the training seed, and its Adam."""
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    from objectpermanence_tpu_torch.train.loop import make_optimizer
+    model_config = json.loads((REPO / "configs" / "opnet_model_config.json").read_text())
+    spec = get_model_spec("opnet")
+    model = spec.build(model_config, torch.Generator().manual_seed(0)).to(device).train()
+    return spec, model, make_optimizer(model.parameters(), 1e-3)
+
+
+def phase_dp_train_path(splits, device, det_train_set):
+    """`training_main(mesh=make_mesh())` of the shipped OPNet for one epoch
+    of the simulated videos under a world-1 NCCL group (DDP), then the same
+    epoch with no process group: losses, dev mIoU and params within 1e-6
+    relative (bitwise where they are); K2/K3/K4 launch in the DDP run. Then,
+    in the group, one FSDP2 step against the plain step (Adam's 1e-5 where
+    |g| >= 1e-7) and the dettrain detector's step under DDP against the
+    single-device step (loss parts within LOSS_RTOL), each timed against its
+    plain twin. Returns the launches of the paths, by kernel."""
+    import torch.distributed as dist
+    from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    from objectpermanence_tpu_torch.train.loop import training_main
+
+    work = WORK_DIR / "dp_train_path"
+    shutil.rmtree(work, ignore_errors=True)
+    train, dev = (ingest_directory(*splits[s][:2], 6, splits[s][2]) for s in ("train", "dev"))
+    shipped = json.loads((REPO / "configs" / "training_config.json").read_text())
+    model_config = json.loads((REPO / "configs" / "opnet_model_config.json").read_text())
+    runs, launches = {}, {}
+    mesh = world_one_nccl()
+    try:
+        for tag in ("ddp", "plain"):
+            config = {**shipped, "num_epochs": 1, "print_step": 1000,
+                      "checkpoints_path": str(work / tag)}
+            if tag == "plain":
+                dist.destroy_process_group()
+                mesh = None
+            read = reset_launches()
+            t0 = time.perf_counter()
+            result = training_main(get_model_spec("opnet"), train, dev, config, model_config,
+                                   mesh=mesh, device=device)
+            torch.cuda.synchronize()
+            runs[tag] = (result, time.perf_counter() - t0, read())
+            if tag == "ddp":
+                launches = runs[tag][2]
+                step_times = phase_dp_step_times(train, device, mesh)
+                fsdp_launches = phase_fsdp_step(train, device, mesh)
+                detector_launches = phase_detector_dp_step(device, mesh, det_train_set)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (ddp, ddp_s, ddp_launches), (plain, plain_s, _) = runs["ddp"], runs["plain"]
+    assert ddp_launches["K2"] > 0 and ddp_launches["K3"] > 0 and ddp_launches["K4"] > 0, \
+        f"the DDP run skipped the LSTM kernels: {ddp_launches}"
+    assert ddp_launches["K1"] == 0, ddp_launches
+    diffs = {}
+    for split in ("train", "dev"):
+        for key in ("loss", "mean_iou", "containment_mean_iou"):
+            a, b = ddp.history[0][split][key], plain.history[0][split][key]
+            diffs[f"{split}_{key}"] = 0.0 if a == b else rel_diff(a, b)
+    plain_state = plain.model.state_dict()
+    param_diffs = {k: rel_diff(v, plain_state[k]) for k, v in ddp.model.state_dict().items()}
+    bitwise = all(torch.equal(v, plain_state[k]) for k, v in ddp.model.state_dict().items())
+    log("dp_train_path", train_videos=len(train), dev_videos=len(dev), frames=FRAMES,
+        batch_size=shipped["batch_size"], epochs=1, ddp_seconds=f"{ddp_s:.3f}",
+        plain_seconds=f"{plain_s:.3f}", launches=json.dumps(ddp_launches),
+        metric_rel_diffs=json.dumps(diffs), params_bitwise_equal=bitwise,
+        max_param_rel_diff=max(param_diffs.values()),
+        train_loss=ddp.history[0]["train"]["loss"], dev_miou=ddp.history[0]["dev"]["mean_iou"],
+        **step_times)
+    assert all(v <= DP_RTOL for v in diffs.values()), f"DDP's metrics differ: {diffs}"
+    assert all(v <= DP_RTOL for v in param_diffs.values()), \
+        f"DDP's params differ: {sorted(param_diffs.items(), key=lambda kv: -kv[1])[:3]}"
+    total = {k: ddp_launches[k] + fsdp_launches[k] + detector_launches[k] for k in ddp_launches}
+    return total
+
+
+def phase_dp_step_times(train, device, mesh):
+    """The shipped OPNet's train step at the shipped batch on the train
+    split's first videos: under DDP (world 1) and plain, ms by CUDA events."""
+    from objectpermanence_tpu_torch.parallel.data_parallel import DataParallel, layers_entry
+    from objectpermanence_tpu_torch.train.loop import make_train_step
+    batch = TRAIN_BATCH
+    inputs = [torch.from_numpy(a[:batch]).to(device) for a in (train.boxes, train.labels)]
+    mask = torch.from_numpy(train.containment_mask[:batch]).to(device)
+    tracks = torch.from_numpy(train.index_to_track[:batch].astype(np.int64)).to(device)
+    weights = torch.ones(batch, device=device)
+    out = {}
+    for tag in ("ddp", "plain"):
+        spec, model, optimizer = opnet_step_setup(device)
+        stepped = DataParallel(model, mesh, layers_entry) if tag == "ddp" else model
+        step = make_train_step(spec, optimizer, mesh=mesh if tag == "ddp" else None)
+        out[f"{tag}_step_ms"] = time_ms(
+            lambda: step(stepped, *inputs, mask, weights, tracks, weight_total=batch),
+            iters=DP_STEPS)
+    return out
+
+
+def phase_fsdp_step(train, device, mesh):
+    """One FSDP2 step (world 1: every large leaf a DTensor over the one
+    rank) of the shipped OPNet against the plain step from the same
+    weights: params within Adam's 1e-5 where |g| >= 1e-7; both timed."""
+    from torch.distributed.tensor import DTensor
+
+    from objectpermanence_tpu_torch.parallel.fsdp import (
+        fsdp_param_shardings, make_fsdp_train_step, param_groups, shard_model,
+    )
+    from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
+    batch = TRAIN_BATCH
+    boxes, labels = (torch.from_numpy(a[:batch]).to(device) for a in (train.boxes, train.labels))
+    mask = torch.from_numpy(train.containment_mask[:batch]).float().to(device)
+    spec, plain, plain_opt = opnet_step_setup(device)
+    make_train_step(spec, plain_opt)(plain, boxes, labels, mask)
+    grads = {n: p.grad.detach().clone() for n, p in plain.named_parameters()}
+    _, model, _ = opnet_step_setup(device)
+    shardings = fsdp_param_shardings(model, mesh)
+    sharded = shard_model(model, mesh)
+    optimizer = make_optimizer(param_groups(sharded), 1e-3)
+    step = make_fsdp_train_step(spec, optimizer, mesh)
+    read = reset_launches()
+    metrics = step(sharded, boxes, labels, mask)
+    torch.cuda.synchronize()
+    launches = read()
+    worst = 0.0
+    for name, param in model.named_parameters():
+        full = param.full_tensor() if isinstance(param, DTensor) else param
+        ok = grads[name].abs() >= GRAD_FLOOR
+        diff = (full.detach() - dict(plain.named_parameters())[name].detach()).abs()[ok]
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    placed = sum(isinstance(p, DTensor) for p in model.parameters())
+    plain_step = make_train_step(spec, plain_opt)
+    fsdp_ms, plain_ms = [], []   # alternating windows: the spread of each
+    for _ in range(3):
+        fsdp_ms.append(time_ms(lambda: step(sharded, boxes, labels, mask), iters=DP_STEPS))
+        plain_ms.append(time_ms(lambda: plain_step(plain, boxes, labels, mask), iters=DP_STEPS))
+    log("fsdp_step", batch=batch, sharded_leaves=placed,
+        replicated_leaves=sum(d is None for d in shardings.values()),
+        launches=json.dumps(launches), loss=float(metrics["loss"]),
+        max_param_abs_diff_conditioned=worst, fsdp_step_ms=fsdp_ms, plain_step_ms=plain_ms)
+    assert launches["K2"] > 0 and launches["K3"] > 0, f"the FSDP step skipped K2/K3: {launches}"
+    assert worst <= ADAM_ATOL, f"the FSDP step's params differ by {worst}"
+    return launches
+
+
+def phase_detector_dp_step(device, mesh, train_set):
+    """The native-geometry dettrain detector's train step at B=8 under DDP
+    (world 1) against the single-device step, same weights and draws: loss
+    parts within LOSS_RTOL; the gradients DDP reduced (after the clipping)
+    and the updated params within DET_DP_NOISE times what two single-device
+    steps on the same inputs differ by (cuDNN's backward need not repeat
+    bitwise), and never more than DP_RTOL apart where those two agree;
+    K7/K8 launched; both steps timed."""
+    from objectpermanence_tpu_torch.models.detector.training import (
+        Draws, data_parallel_detector, make_detector_train_step, trainable_tensors,
+    )
+    from objectpermanence_tpu_torch.train.detector_loop import warmup_schedule
+    inputs = train_batch(train_set, device)
+    runs = {}
+    for tag in ("ddp", "plain", "plain_again"):
+        cfg, model, anchors = detector_training_setup(device)
+        tensors = trainable_tensors(model)
+        optimizer = torch.optim.SGD([t for _, t in tensors], lr=DET_LR,
+                                    momentum=0.9, weight_decay=5e-4, dampening=0.0)
+        step = make_detector_train_step(cfg, anchors, optimizer, warmup_schedule(DET_LR, 5))
+        stepped = data_parallel_detector(model, cfg, anchors, mesh) if tag == "ddp" else model
+        draws = Draws.sample(DET_BATCH, sum(a.shape[0] for a in anchors), DET_ROIS, device,
+                             torch.Generator(device=device).manual_seed(5))
+        read = reset_launches()
+        parts = step(stepped, *inputs, draws=draws)
+        torch.cuda.synchronize()
+        launches = read()
+        grads = {name: t.grad.detach().clone() for name, t in tensors}
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        ms = None
+        if tag != "plain_again":
+            gen = torch.Generator(device=device).manual_seed(6)
+            ms = time_ms(lambda: step(stepped, *inputs, generator=gen), iters=DP_STEPS // 2)
+        runs[tag] = ({k: float(v) for k, v in parts.items()}, grads, state, launches, ms)
+    (parts, grads, state, launches, ms) = runs["ddp"]
+    (plain_parts, plain_grads, plain_state, _, plain_ms) = runs["plain"]
+    _, again_grads, again_state, _, _ = runs["plain_again"]
+    loss_rel = {k: abs(parts[k] - plain_parts[k]) / abs(plain_parts[k]) for k in parts}
+    diffs = {}
+    for what, ours, ref, again in (("grad", grads, plain_grads, again_grads),
+                                   ("param", state, plain_state, again_state)):
+        diffs[f"{what}_rel_diff"] = max(rel_diff(v, ref[k]) for k, v in ours.items())
+        diffs[f"{what}_noise"] = max(rel_diff(again[k], ref[k]) for k in ref)
+        diffs[f"{what}_bound"] = max(DET_DP_NOISE * diffs[f"{what}_noise"], DP_RTOL)
+    log("detector_dp_step", batch=DET_BATCH, loss_parts=json.dumps(parts),
+        loss_rel_diff=json.dumps(loss_rel), **diffs,
+        launches=json.dumps(launches), ddp_step_ms=ms, plain_step_ms=plain_ms)
+    assert launches["K7"] > 0 and launches["K8"] > 0, f"the DDP step skipped K7/K8: {launches}"
+    assert all(v <= LOSS_RTOL for v in loss_rel.values()), f"loss parts differ: {loss_rel}"
+    for what in ("grad", "param"):
+        assert diffs[f"{what}_rel_diff"] <= diffs[f"{what}_bound"], \
+            f"DDP's {what}s differ from the single-device step's: {diffs}"
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2897,12 +3204,16 @@ def main() -> int:
     phase_bench_torch()
     phase_detect_profile(detector)
     phase_detect_800_profile(det800_bf16, det800_detector(device, "float32"))
+    dp_launches = phase_dp_train_path(phase_native_ingest(), device, train_set)
     kernels = [phase_times(weights, device, launches, max_abs_err),
                phase_times(weights, device, k1_bf16_launches, k1_bf16_error, torch.bfloat16)]
-    lstm_launches = {tag: train_launches[tag] + models_launches[tag] for tag in ("K2", "K3", "K4")}
+    lstm_launches = {tag: train_launches[tag] + models_launches[tag] + dp_launches[tag]
+                     for tag in ("K2", "K3", "K4")}
     kernels += phase_lstm_times(weights, device, lstm_launches, lstm_errors)
-    kernels += phase_roi_times(roi_inputs, preprocess_launches, roi_errors)
-    kernels += [phase_k8_times(k8_inputs, detector_train_launches["K8"], k8_error),
+    roi_launches = {**preprocess_launches, "K7": preprocess_launches["K7"] + dp_launches["K7"]}
+    kernels += phase_roi_times(roi_inputs, roi_launches, roi_errors)
+    kernels += [phase_k8_times(k8_inputs, detector_train_launches["K8"] + dp_launches["K8"],
+                               k8_error),
                 phase_k8_bf16_times(k8_bf16_inputs, train800_launches["K8"], k8_bf16_error)]
     kernels += phase_windowed_times(windowed_inputs, native_bf16_inputs, preprocess_800_launches,
                                     windowed_errors)

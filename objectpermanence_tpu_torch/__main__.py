@@ -114,23 +114,32 @@ def main(argv=None) -> int:
 def _training(args, spec) -> int:
     """`main.py`'s training mode: ingest train and dev with their
     containment files, then `training_main`. The device is resolved first,
-    so a run meant for the card fails before it ingests anything."""
+    so a run meant for the card fails before it ingests anything. Under
+    `torchrun` each rank trains its slice of every batch on its own device
+    (`parallel/mesh.py::mesh_from_env`)."""
+    import torch.distributed as dist
+
     from objectpermanence_tpu_torch import resolve_device
     from objectpermanence_tpu_torch.config import config_device, training_config_from
     from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.parallel.mesh import mesh_from_env
     from objectpermanence_tpu_torch.train.loop import training_main
 
     model_config = _load_json(args.model_config)
     train_config = _load_json(args.training_config)
     cfg = training_config_from(train_config)
-    device = resolve_device(config_device(cfg.device))
+    mesh, device = mesh_from_env(resolve_device(config_device(cfg.device)))
     train_dataset = ingest_directory(cfg.train_sample_dir, cfg.train_labels_dir,
                                      spec.feature_width, cfg.train_containment_file,
                                      cfg.cache_dir)
     dev_dataset = ingest_directory(cfg.dev_sample_dir, cfg.dev_labels_dir, spec.feature_width,
                                    cfg.dev_containment_file, cfg.cache_dir)
-    training_main(spec, train_dataset, dev_dataset, cfg, model_config, resume=args.resume,
-                  device=device)
+    try:
+        training_main(spec, train_dataset, dev_dataset, cfg, model_config, mesh=mesh,
+                      resume=args.resume, device=device)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     return 0
 
 

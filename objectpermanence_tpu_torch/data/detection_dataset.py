@@ -63,9 +63,12 @@ class DetectionDataset:
             valid[i] = True
         return boxes, labels, valid
 
-    def batches(self, batch_size: int, *, shuffle: bool = False, seed: int = 0):
+    def batches(self, batch_size: int, *, shuffle: bool = False, seed: int = 0,
+                rows: slice = None):
         """Batches of `batch_size` images in order (or shuffled by
-        `RandomState(seed)`); the last batch repeats its final image."""
+        `RandomState(seed)`); the last batch repeats its final image. With
+        `rows`, only those rows of each batch are loaded (a data-parallel
+        rank's share)."""
         idx = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(idx)
@@ -73,6 +76,8 @@ class DetectionDataset:
             sel = idx[start:start + batch_size]
             if len(sel) < batch_size:  # repeat-pad the last batch
                 sel = np.concatenate([sel, np.repeat(sel[-1:], batch_size - len(sel))])
+            if rows is not None:
+                sel = sel[rows]
             names = [self.filenames[i] for i in sel]
             images = np.stack([self.load_image(n) for n in names]).astype(np.float32)
             gts = [self.gt_arrays(n) for n in names]

@@ -4,8 +4,10 @@ The port's own copy of the pure-Python path of
 `objectpermanence_tpu/data/ingest.py`: the padding/alignment and the
 containment-oracle state machines run once at ingest, the result is cached
 as a single `.npz`, and the model only touches dense `(V, 300, 15, F)`
-arrays. The JAX package's native C++ fast path (`native/ingest.cc`) gives
-the same arrays and is ported in a later slice.
+arrays. The padding and the oracle run in the port's native C++ library
+(`native/ingest.cc`, built at first use by `native/build.py`) unless the
+caller asks for the Python path (`native=False`, or the JAX package's switch
+`OP_TPU_DISABLE_NATIVE` set); both give the same arrays bit for bit.
 
 Schema compatibility:
 - input pickles: `{"bb": [ndarray (n_i, 4)] * 300, "labels": [ndarray (n_i,)] * 300}`
@@ -16,8 +18,10 @@ Schema compatibility:
   (`baselines/datasets.py:460-475`)
 """
 
+import functools
 import hashlib
 import json
+import os
 import pickle
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -275,10 +279,15 @@ class IngestedDataset:
 
 
 def ingest_directory(predictions_dir, labels_dir, feature_width: int,
-                     containment_file=None, cache_dir=None) -> IngestedDataset:
+                     containment_file=None, cache_dir=None,
+                     native: Optional[bool] = None) -> IngestedDataset:
     """Scan `predictions_dir/*.pkl`, pair with `labels_dir/<name>_bb.json`,
     run pad/align + the containment oracle once, and cache everything as a
-    single npz keyed by the input files' mtimes."""
+    single npz keyed by the input files' mtimes. `native` (default: unless
+    `OP_TPU_DISABLE_NATIVE` is set) runs them in the C++ library, which
+    raises if it cannot be built; `native=False` in Python."""
+    if native is None:
+        native = not os.environ.get("OP_TPU_DISABLE_NATIVE")
     predictions_dir, labels_dir = Path(predictions_dir), Path(labels_dir)
     names = sorted(p.stem for p in predictions_dir.glob("*.pkl"))
     if not names:
@@ -295,12 +304,20 @@ def ingest_directory(predictions_dir, labels_dir, feature_width: int,
         with np.load(cache_path, allow_pickle=False) as blob:
             boxes, track, labels = blob["boxes"], blob["index_to_track"], blob["labels"]
     else:
+        if native:
+            from objectpermanence_tpu_torch.native.build import (
+                native_containment_oracle, native_pad_video,
+            )
+            pad = functools.partial(native_pad_video, is_cone=IS_CONE)
+            oracle = native_containment_oracle
+        else:
+            pad, oracle = pad_video_detections, containment_oracle
         all_boxes, all_track, all_labels = [], [], []
         for name in names:
             with open(predictions_dir / f"{name}.pkl", "rb") as f:
                 pred = pickle.load(f)
-            padded = pad_video_detections(pred["bb"], pred["labels"], feature_width)
-            track = containment_oracle(padded, feature_width)
+            padded = pad(pred["bb"], pred["labels"], feature_width)
+            track = oracle(padded, feature_width)
             all_boxes.append(padded)
             all_track.append(track)
             all_labels.append(load_snitch_labels(labels_dir / f"{name}_bb.json"))
@@ -308,7 +325,11 @@ def ingest_directory(predictions_dir, labels_dir, feature_width: int,
         track = np.stack(all_track)
         labels = np.stack(all_labels)
         if cache_path is not None:
-            np.savez_compressed(cache_path, boxes=boxes, index_to_track=track, labels=labels)
+            # atomic: data-parallel ranks ingest the same files at once
+            tmp = cache_path.with_suffix(f".{os.getpid()}.tmp")
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, boxes=boxes, index_to_track=track, labels=labels)
+            os.replace(tmp, cache_path)
 
     containment = None
     if containment_file is not None:

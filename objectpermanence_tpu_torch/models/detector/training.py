@@ -34,6 +34,8 @@ from objectpermanence_tpu_torch.models.detector.detector import (
 from objectpermanence_tpu_torch.models.detector.rpn import generate_proposals
 from objectpermanence_tpu_torch.ops.boxes import pairwise_iou_xyxy
 from objectpermanence_tpu_torch.ops.nms import NEG_INF
+from objectpermanence_tpu_torch.parallel.data_parallel import DataParallel, average_gradients
+from objectpermanence_tpu_torch.parallel.mesh import data_group
 
 BELOW_LOW = -1
 BETWEEN = -2
@@ -53,9 +55,15 @@ class Draws(NamedTuple):
 
     @classmethod
     def sample(cls, batch: int, num_anchors: int, num_rois: int, device,
-               generator: Optional[torch.Generator] = None) -> "Draws":
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int]] = None) -> "Draws":
+        """`rows = (start, total)`: draw for a batch of `total` images and
+        keep rows `start:start + batch`, so that a data-parallel rank draws
+        what one device draws for its images."""
+        start, total = (0, batch) if rows is None else rows
+
         def rand(n):
-            return torch.rand((batch, n), generator=generator, device=device)
+            return torch.rand((total, n), generator=generator, device=device)[start:start + batch]
         return cls(rand(num_anchors), rand(num_anchors), rand(num_rois), rand(num_rois))
 
 
@@ -184,12 +192,14 @@ def detection_loss(model, images: torch.Tensor, gt_boxes: torch.Tensor, gt_label
                    gt_valid: torch.Tensor, config: DetectorConfig, anchors: List[torch.Tensor],
                    draws: Optional[Draws] = None,
                    generator: Optional[torch.Generator] = None,
-                   on_stage: Optional[Callable[[str], None]] = None
+                   on_stage: Optional[Callable[[str], None]] = None,
+                   draw_rows: Optional[Tuple[int, int]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total Faster R-CNN loss of a batch, the sum of its four parts
     (the reference's loss dict), each the mean over the images. Raw frames
     (B, H, W, 3); ground truth (B, G, 4) in the frames' coordinates, labels
-    and validity (B, G). Without `draws`, they are made from `generator`.
+    and validity (B, G). Without `draws`, they are made from `generator`
+    (`Draws.sample`'s `rows` is `draw_rows`).
     `on_stage(name)`, if given, is called as each stage has been issued:
     "backbone_fpn", "rpn_proposals", "roi_align", "heads_losses"."""
     check_supported(config)
@@ -215,7 +225,7 @@ def detection_loss(model, images: torch.Tensor, gt_boxes: torch.Tensor, gt_label
     batch = images.shape[0]
     if draws is None:
         draws = Draws.sample(batch, anchors_cat.shape[0], all_props.shape[1], images.device,
-                             generator)
+                             generator, draw_rows)
     mark("rpn_proposals")
     pooled = batched_roi_align(pyramid[:4], all_props, config)       # (B, P+G, C, 7, 7)
     mark("roi_align")
@@ -259,12 +269,27 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+def data_parallel_detector(model, config: DetectorConfig, anchors: List[torch.Tensor], mesh):
+    """`model` under DDP over the data dim of `mesh`, entered through
+    `detection_loss` (the train step's `model` under data parallelism)."""
+    def loss_entry(module, *args, **kwargs):
+        return detection_loss(module, *args[:4], config, anchors, *args[4:], **kwargs)
+    return DataParallel(model, mesh, loss_entry)
+
+
 def make_detector_train_step(config: DetectorConfig, anchors: List[torch.Tensor],
                              optimizer: torch.optim.Optimizer, schedule, max_norm: float = 10.0):
     """-> step(model, images, gt_boxes, gt_labels, gt_valid, draws=None,
-    generator=None, on_stage=None) -> the loss parts and their sum
-    ("loss"), on the device. `on_stage` is `detection_loss`'s, called also
-    after "backward" and "optimizer".
+    generator=None, on_stage=None, draw_rows=None) -> the loss parts and
+    their sum ("loss"), on the device. `on_stage` is `detection_loss`'s,
+    called also after "backward" and "optimizer".
+
+    `model` is a `Detector`, or one under `data_parallel_detector` with this
+    rank's images of the batch (`draw_rows`: their first row and the batch's
+    size). The loss parts are means over the images, which the ranks hold in
+    equal counts, so DDP's mean of the gradients is the whole batch's; the
+    gradients of the tensors that are not parameters (frozen batch norm's)
+    are averaged beside it, before the clipping.
 
     One update of JAX's chain `clip_by_global_norm(max_norm)` ->
     `add_decayed_weights` -> `sgd(schedule, momentum)`: the optimizer is a
@@ -273,15 +298,23 @@ def make_detector_train_step(config: DetectorConfig, anchors: List[torch.Tensor]
     to `schedule(count)`, `count` the updates so far (`step.count`, from
     0)."""
     tensors = [t for group in optimizer.param_groups for t in group["params"]]
+    buffers = [t for t in tensors if not isinstance(t, torch.nn.Parameter)]
 
     def step(model, images, gt_boxes, gt_labels, gt_valid, draws: Optional[Draws] = None,
              generator: Optional[torch.Generator] = None,
-             on_stage: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+             on_stage: Optional[Callable[[str], None]] = None,
+             draw_rows: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         mark = on_stage or (lambda name: None)
         optimizer.zero_grad(set_to_none=False)
-        loss, parts = detection_loss(model, images, gt_boxes, gt_labels, gt_valid, config,
-                                     anchors, draws, generator, on_stage)
-        loss.backward()
+        if isinstance(model, DataParallel):
+            loss, parts = model(images, gt_boxes, gt_labels, gt_valid, draws, generator,
+                                on_stage, draw_rows)
+            loss.backward()
+            average_gradients(buffers, data_group(model.mesh))
+        else:
+            loss, parts = detection_loss(model, images, gt_boxes, gt_labels, gt_valid, config,
+                                         anchors, draws, generator, on_stage, draw_rows)
+            loss.backward()
         mark("backward")
         with torch.no_grad():
             clip_by_global_norm_([t.grad for t in tensors], max_norm)

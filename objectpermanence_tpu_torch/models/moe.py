@@ -15,6 +15,8 @@ hidden)`, `w2 (E, hidden, out)`.
 import math
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
@@ -27,25 +29,35 @@ def moe_route(router: torch.Tensor, h: torch.Tensor):
     return top1, gate, probs
 
 
-def moe_balance_loss(probs: torch.Tensor, token_weight: torch.Tensor = None) -> torch.Tensor:
+def moe_balance_loss(probs: torch.Tensor, token_weight: torch.Tensor = None,
+                     group=None) -> torch.Tensor:
     """Switch Transformers' load-balance term (Fedus et al. 2021, eq. 4-6)
     from router probs `(..., E)`: `E * sum_e f_e * P_e`, `f_e` the share of
     tokens whose top-1 expert is `e`, `P_e` the mean probability on `e`. It
     is 1 at uniform routing. `token_weight`, broadcastable to the token
     axes (the train step's `(B,)` sample weights), makes both weighted means,
-    so the rows that pad a ragged batch count for nothing."""
+    so the rows that pad a ragged batch count for nothing. With a process
+    `group`, the means run over the tokens of all its ranks (the global
+    batch of a data-parallel step); `P_e`'s sum is reduced with its gradient,
+    so each rank's backward carries every rank's share of the term."""
     num_experts = probs.shape[-1]
     token_axes = tuple(range(probs.dim() - 1))
     onehot = F.one_hot(torch.argmax(probs, dim=-1), num_experts).to(probs.dtype)
-    if token_weight is None:
+    if token_weight is None and group is None:
         f = onehot.mean(dim=token_axes)
         p = probs.mean(dim=token_axes)
     else:
-        w = token_weight.to(probs.dtype)
+        w = (torch.ones(probs.shape[:-1], dtype=probs.dtype, device=probs.device)
+             if token_weight is None else token_weight.to(probs.dtype))
         w = w.reshape(w.shape + (1,) * (probs.dim() - w.dim())).expand(probs.shape)
-        denom = torch.clamp(w.sum(dim=token_axes), min=1e-6)
-        f = (onehot * w).sum(dim=token_axes) / denom
-        p = (probs * w).sum(dim=token_axes) / denom
+        counts = torch.stack([(onehot * w).sum(dim=token_axes), w.sum(dim=token_axes)])
+        p_sum = (probs * w).sum(dim=token_axes)
+        if group is not None:
+            dist.all_reduce(counts, group=group)
+            p_sum = dist_nn.all_reduce(p_sum, group=group)
+        denom = torch.clamp(counts[1], min=1e-6)
+        f = counts[0] / denom
+        p = p_sum / denom
     return num_experts * (f * p).sum()
 
 

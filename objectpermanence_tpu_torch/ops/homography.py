@@ -1,13 +1,12 @@
-"""Image plane -> CATER ground plane -> 6 x 6 grid class, the port's copy of
-the parts of `objectpermanence_tpu/ops/homography.py` that
-`cater_inference` needs (numpy, no OpenCV).
+"""CATER camera projection, image plane -> CATER ground plane -> 6 x 6 grid
+class, the port's copy of `objectpermanence_tpu/ops/homography.py` (numpy,
+no OpenCV).
 
 The homography maps image points in [-1, 1] coordinates back to the object
 plane z = `PLANE_Z` of the fixed CATER render camera; `get_class_prediction`
 and `grid_classes_for_centers` bin the mapped point into the 36 grid
 classes. The camera-motion helpers (`camera_center`, `camera_matrix_at`,
-`project_3d_point`'s `cam`) are not ported yet (ROADMAP.md, Next slices,
-item 8).
+`project_3d_point`'s `cam`) serve the simulator (`datagen/simulator.py`).
 """
 
 import math
@@ -26,16 +25,36 @@ CATER_CAM = np.array([
 PLANE_Z = 0.3421497941017151
 
 
-def project_3d_point(pts: np.ndarray) -> np.ndarray:
+def project_3d_point(pts: np.ndarray, cam: np.ndarray = None) -> np.ndarray:
     """(N, 3) world points -> (N, 2) image coordinates in [-1, 1] through the
-    CATER camera, the Y axis negated so that low Y is at the top."""
+    CATER camera (or the projection matrix `cam`, as `camera_matrix_at`
+    gives for a moved camera), the Y axis negated so that low Y is at the
+    top."""
     pts = np.asarray(pts, dtype=np.float64)
     homo = np.hstack([pts, np.ones((pts.shape[0], 1))])
-    p = (CATER_CAM @ homo.T).T
+    p = ((CATER_CAM if cam is None else cam) @ homo.T).T
     out = np.empty((pts.shape[0], 2))
     out[:, 0] = p[:, 0] / p[:, -1]
     out[:, 1] = -p[:, 1] / p[:, -1]
     return out
+
+
+def camera_center() -> np.ndarray:
+    """The CATER camera's world location, recovered from the projection
+    matrix (rows x, y, w form P = K[R | -R C]; C = -M^-1 p4)."""
+    p = CATER_CAM[[0, 1, 3], :]
+    return -np.linalg.solve(p[:, :3], p[:, 3])
+
+
+def camera_matrix_at(location: np.ndarray) -> np.ndarray:
+    """The CATER projection matrix with the camera translated to `location`,
+    rotation and intrinsics kept (the reference's random camera motion moves
+    only the camera's location): moving the camera by d is moving the world
+    by -d, so the matrix is CATER_CAM @ [[I, -d], [0, 1]]."""
+    d = np.asarray(location, dtype=np.float64) - camera_center()
+    t = np.eye(4)
+    t[:3, 3] = -d
+    return CATER_CAM @ t
 
 
 def fit_homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:

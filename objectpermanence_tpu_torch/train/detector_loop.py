@@ -7,6 +7,14 @@ iterations, evaluation after every epoch and a checkpoint on improvement;
 gradients clipped to a global norm of 10, as the JAX package does for
 training from scratch. Detection mAP comes from `analysis/detection_eval.py`.
 Checkpoints are `.npz` state_dicts (`utils/checkpoint.py`).
+
+With a mesh, data parallel over its data dim (JAX shards the image batches
+over the mesh's data axis): the batch is rounded up to the data width, each
+rank runs its slice of every batch, the model is under DDP
+(`models/detector/training.py::data_parallel_detector`), and rank 0
+evaluates and writes the checkpoints. Each rank owns whole images, so the
+RoIAlign kernels (K7/K8) run per rank as on one device, where JAX's mesh
+step takes its XLA gather path instead.
 """
 
 import shutil
@@ -16,6 +24,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from objectpermanence_tpu_torch import resolve_device
 from objectpermanence_tpu_torch.analysis.detection_eval import evaluate_detections
@@ -25,8 +34,9 @@ from objectpermanence_tpu_torch.models.detector.detector import (
     CaterDetector, Detector, DetectorConfig, check_supported, init_detector,
 )
 from objectpermanence_tpu_torch.models.detector.training import (
-    make_detector_train_step, trainable_tensors,
+    data_parallel_detector, make_detector_train_step, trainable_tensors,
 )
+from objectpermanence_tpu_torch.parallel.mesh import batch_sharding, data_group, data_width
 from objectpermanence_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -91,13 +101,34 @@ def train_detector(train_dataset: DetectionDataset,
     newest. `resume=True` restarts after the latest such epoch. The loss
     stays on the device between fetches every `print_step` iterations, where
     a non-finite loss stops the run. Returns {"model", "params" (its
-    state_dict), "history" (the epochs run in this call), "best_map"}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port's multi-device layer is ROADMAP.md, Next slices, item 7; "
-            "train_detector runs on one device")
+    state_dict), "history" (the epochs run in this call), "best_map"}.
+
+    With `mesh` (`parallel/mesh.py::make_mesh`), every rank calls this with
+    the same datasets and arguments and its own `device`; the losses in the
+    history are the whole batches'."""
     check_supported(config)
     device = resolve_device(device)
+    rows = None       # this rank's rows of each batch, the only images it loads
+    if mesh is not None:
+        width = data_width(mesh)
+        batch_size = -(-batch_size // width) * width
+        rows = batch_sharding(mesh, batch_size)
+    rank = 0 if mesh is None else dist.get_rank()
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier(group=data_group(mesh))
+
+    def fetch(losses):
+        """The losses of the steps since the last fetch, on the host (the
+        whole batches', averaged over the ranks)."""
+        if not losses:
+            return []
+        stacked = torch.stack(losses)
+        if mesh is not None:
+            dist.all_reduce(stacked, group=data_group(mesh))
+            stacked = stacked / width
+        return stacked.tolist()
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -123,14 +154,17 @@ def train_detector(train_dataset: DetectionDataset,
     start_epoch = 0
     best_map = -1.0
     if resume:
+        barrier()
         latest = ckpt.latest_checkpoint(checkpoint_dir / "resume")
         if latest is not None:
             meta = ckpt.restore_train_state(latest, model, optimizer)
             start_epoch = int(meta["epoch"])
             best_map = float(meta.get("best_map", -1.0))
             train_step.count = int(meta["count"])
-            print(f"Resumed detector training from {latest} "
-                  f"(epoch {start_epoch}, best mAP {best_map:.4f})", flush=True)
+            if rank == 0:
+                print(f"Resumed detector training from {latest} "
+                      f"(epoch {start_epoch}, best mAP {best_map:.4f})", flush=True)
+    stepped = model if mesh is None else data_parallel_detector(model, config, anchors, mesh)
     history = []
     start = time.time()
 
@@ -142,23 +176,26 @@ def train_detector(train_dataset: DetectionDataset,
         losses = []
         pending = []      # losses on the device; fetched at print boundaries
         for it, batch in enumerate(train_dataset.batches(
-                batch_size, shuffle=True, seed=seed + epoch)):
-            parts = train_step(model, to_device(batch["images"]), to_device(batch["gt_boxes"]),
+                batch_size, shuffle=True, seed=seed + epoch, rows=rows)):
+            draw_rows = None if mesh is None else (rows.start, batch_size)
+            parts = train_step(stepped, to_device(batch["images"]), to_device(batch["gt_boxes"]),
                                to_device(batch["gt_labels"], torch.int64),
-                               to_device(batch["gt_valid"]), generator=generator)
+                               to_device(batch["gt_valid"]), generator=generator,
+                               draw_rows=draw_rows)
             # keep the loss on the device: a fetch here would wait for the
             # step (the NaN abort fires at print boundaries instead)
             pending.append(parts["loss"])
             if (it + 1) % print_step == 0:
-                fetched = [float(loss) for loss in pending]
+                fetched = fetch(pending)
                 pending = []
                 if not np.all(np.isfinite(fetched)):
                     raise RuntimeError(f"Loss is {fetched}, stopping training")
                 losses.extend(fetched)
-                print(f"Epoch {epoch + 1} iter {it + 1}: "
-                      f"loss {np.mean(losses[-print_step:]):.4f} "
-                      f"({int(time.time() - start)}s)", flush=True)
-        fetched = [float(loss) for loss in pending]
+                if rank == 0:
+                    print(f"Epoch {epoch + 1} iter {it + 1}: "
+                          f"loss {np.mean(losses[-print_step:]):.4f} "
+                          f"({int(time.time() - start)}s)", flush=True)
+        fetched = fetch(pending)
         if fetched and not np.all(np.isfinite(fetched)):
             raise RuntimeError(f"Loss is {fetched}, stopping training")
         losses.extend(fetched)
@@ -166,27 +203,39 @@ def train_detector(train_dataset: DetectionDataset,
         metrics = {"epoch": epoch + 1, "train_loss": float(np.mean(losses)),
                    "train_losses": losses}
         if eval_dataset is not None:
-            detector = CaterDetector(config, state_dict=model.state_dict(), device=device)
-            metrics.update(evaluate_detector(detector, eval_dataset))
-            print(f"Epoch {epoch + 1}: loss {metrics['train_loss']:.4f} "
-                  f"mAP {metrics.get('mAP', 0):.4f} "
-                  f"AP50 {metrics.get('AP50', 0):.4f}", flush=True)
+            scores = [None]
+            if rank == 0:
+                detector = CaterDetector(config, state_dict=model.state_dict(), device=device)
+                scores[0] = evaluate_detector(detector, eval_dataset)
+            if mesh is not None:
+                dist.broadcast_object_list(scores, group=data_group(mesh),
+                                           group_src=0)
+            metrics.update(scores[0])
+            if rank == 0:
+                print(f"Epoch {epoch + 1}: loss {metrics['train_loss']:.4f} "
+                      f"mAP {metrics.get('mAP', 0):.4f} "
+                      f"AP50 {metrics.get('AP50', 0):.4f}", flush=True)
             if metrics["mAP"] > best_map:
                 best_map = metrics["mAP"]
-                ckpt.save_params(checkpoint_dir / f"best_{round(best_map, 3)}.npz",
-                                 model.state_dict())
+                if rank == 0:
+                    ckpt.save_params(checkpoint_dir / f"best_{round(best_map, 3)}.npz",
+                                     model.state_dict())
         history.append(metrics)
 
         # epoch-granular resume state; only the newest is kept (the full
         # detector with its momentum is a few hundred MB)
-        state_dir = checkpoint_dir / "resume" / f"epoch_{epoch + 1:04d}"
-        ckpt.save_train_state(state_dir, model, optimizer,
-                              {"epoch": epoch + 1, "best_map": best_map,
-                               "count": train_step.count})
-        for old in (checkpoint_dir / "resume").iterdir():
-            if old.is_dir() and old != state_dir:
-                shutil.rmtree(old)
+        if rank == 0:
+            state_dir = checkpoint_dir / "resume" / f"epoch_{epoch + 1:04d}"
+            ckpt.save_train_state(state_dir, model, optimizer,
+                                  {"epoch": epoch + 1, "best_map": best_map,
+                                   "count": train_step.count})
+            for old in (checkpoint_dir / "resume").iterdir():
+                if old.is_dir() and old != state_dir:
+                    shutil.rmtree(old)
+        barrier()
 
-    ckpt.save_params(checkpoint_dir / "final.npz", model.state_dict())
+    if rank == 0:
+        ckpt.save_params(checkpoint_dir / "final.npz", model.state_dict())
+    barrier()
     return {"model": model, "params": model.state_dict(), "history": history,
             "best_map": best_map}

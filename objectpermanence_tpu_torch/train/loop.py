@@ -16,7 +16,17 @@
   the train loss and count, unweighted, in the eval loss, as there.
 - Epoch-end evaluation (int32 pixel boxes -> per-video mean IoU ->
   containment mIoU) runs on the device.
-- One card, no mesh: the batch is not rounded to a data-parallel width.
+- With a mesh (`training_main(mesh=...)`, `parallel/mesh.py`), each rank of
+  its data dim holds the whole dataset, draws the same shuffle and runs its
+  contiguous slice of every batch, rounded up to the data width; the model
+  is under DDP (`parallel/data_parallel.py`). Each rank scales its loss by
+  its share of the batch's weight, so DDP's mean of the ranks' gradients is
+  the gradient of the global batch's weighted loss, and the ragged batch's
+  zero-weight rows may fall on any rank; `opnet_moe`'s balance term is
+  reduced over the ranks. Dropout (`transformer_lstm`) draws from a
+  generator seeded from the training seed and the rank. Eval results are
+  gathered, so every rank sees the same metrics, scheduler and best-dev
+  choice; rank 0 writes the checkpoints. Without a mesh, one device.
 - Checkpoints: the best-dev params as `<ckpt>/<model>/<dd-mm-yy>_<miou>.npz`
   and a resumable state per epoch under `<ckpt>/<model>/resume/epoch_NNNN/`.
 - Observability: `profile_dir` traces the first epoch's steps with
@@ -34,6 +44,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from objectpermanence_tpu_torch import resolve_device
 from objectpermanence_tpu_torch.config import TrainingConfig, config_device, training_config_from
@@ -41,6 +52,8 @@ from objectpermanence_tpu_torch.data.ingest import IngestedDataset
 from objectpermanence_tpu_torch.models.moe import moe_balance_loss
 from objectpermanence_tpu_torch.models.registry import ModelSpec
 from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes, iou_xyxy
+from objectpermanence_tpu_torch.parallel.data_parallel import DataParallel, layers_entry
+from objectpermanence_tpu_torch.parallel.mesh import batch_sharding, data_group, data_width
 from objectpermanence_tpu_torch.train.losses import attention_ce_loss, total_loss
 from objectpermanence_tpu_torch.train.plateau import ReduceLROnPlateau
 from objectpermanence_tpu_torch.utils import checkpoint as ckpt
@@ -59,40 +72,63 @@ def _fp32_products(device: torch.device) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def _forward(spec: ModelSpec, model, boxes, generator=None, weights=None):
+def _forward(spec: ModelSpec, model, boxes, generator=None, weights=None, group=None):
     """-> (boxes, who-to-attend logits or None, balance term or None), as
     JAX's `_forward`: the balance term where the spec weighs one (its token
-    weights the sample weights), the logits for the double-output models."""
+    weights the sample weights; over the ranks of `group`), the logits for
+    the double-output models."""
     if spec.aux_loss_weight:
         out, logits, probs = model.forward_layers(boxes, generator, return_probs=True)
-        return out, logits, moe_balance_loss(probs, token_weight=weights)
+        return out, logits, moe_balance_loss(probs, token_weight=weights, group=group)
     if spec.double_output:
         out, logits = model.forward_layers(boxes, generator)
         return out, logits, None
     return model.forward_layers(boxes, generator), None, None
 
 
-def make_train_step(spec: ModelSpec, optimizer: torch.optim.Optimizer, generator=None):
-    """`train_step(model, boxes, labels, mask, weights=None, tracks=None)`
-    -> metrics (0-d tensors); updates `model` in place. `weights (B,)` is 0
-    on the repeated rows that pad a ragged batch. Dropout, where the model
-    has it, runs in train mode from `generator` (on the model's device).
-    Gradients stay in `param.grad` until the next step."""
+def make_train_step(spec: ModelSpec, optimizer: torch.optim.Optimizer, generator=None,
+                    mesh=None):
+    """`train_step(model, boxes, labels, mask, weights=None, tracks=None,
+    weight_total=None)` -> metrics (0-d tensors); updates `model` in place.
+    `weights (B,)` is 0 on the repeated rows that pad a ragged batch. Dropout,
+    where the model has it, runs in train mode from `generator` (on the
+    model's device). Gradients stay in `param.grad` until the next step.
 
-    def train_step(model, boxes, labels, mask, weights=None, tracks=None):
+    With `mesh`, `model` is the model under `DataParallel` and the batch is
+    this rank's slice of the global batch, whose weights sum to
+    `weight_total`. The weighted means are scaled by the rank's share of
+    that sum times the data width, so DDP's mean of the gradients is the
+    global batch's; the metrics returned are the global batch's, reduced
+    over the ranks."""
+    group = None if mesh is None else data_group(mesh)
+    width = 1 if mesh is None else data_width(mesh)
+
+    def train_step(model, boxes, labels, mask, weights=None, tracks=None, weight_total=None):
         optimizer.zero_grad(set_to_none=True)
-        out, logits, aux = _forward(spec, model, boxes, generator, weights)
+        out, logits, aux = _forward(spec, model, boxes, generator, weights, group)
         loss, metrics = total_loss(out, labels, mask, spec.no_labels, sample_weight=weights)
+        share = None
+        if group is not None and weights is not None:
+            share = weights.sum() * width / weight_total
+            loss = loss * share
+            metrics = {key: value * share for key, value in metrics.items()}
         if aux is not None:
             loss = loss + spec.aux_loss_weight * aux
             metrics = {**metrics, "loss": loss, "balance_loss": aux}
         if spec.att_ce_weight and tracks is not None:
             att_ce = attention_ce_loss(logits, tracks, sample_weight=weights)
+            if share is not None:
+                att_ce = att_ce * share
             loss = loss + spec.att_ce_weight * att_ce
             metrics = {**metrics, "loss": loss, "att_ce_loss": att_ce}
         loss.backward()
         optimizer.step()
-        return {key: value.detach() for key, value in metrics.items()}
+        metrics = {key: value.detach() for key, value in metrics.items()}
+        if group is not None:
+            values = torch.stack(list(metrics.values()))
+            dist.all_reduce(values, group=group)
+            metrics = dict(zip(metrics, values / width))
+        return metrics
 
     return train_step
 
@@ -150,17 +186,36 @@ class DeviceDataset:
             yield sel, real
 
 
-def evaluate(eval_step, model, data: DeviceDataset, batch_size: int) -> Dict[str, float]:
+def _gather_eval(mesh, loss, vid_iou, c_sum, c_cnt):
+    """The eval results of the ranks' slices, as one device's of the global
+    batch: the mean of the slices' losses and the per-video rows in rank
+    order."""
+    rows = torch.stack([loss.expand_as(vid_iou), vid_iou, c_sum, c_cnt.to(vid_iou.dtype)])
+    parts = [torch.empty_like(rows) for _ in range(data_width(mesh))]
+    dist.all_gather(parts, rows, group=data_group(mesh))
+    rows = torch.cat(parts, dim=1)
+    return (torch.stack([part[0, 0] for part in parts]).mean(), rows[1], rows[2],
+            rows[3].to(c_cnt.dtype))
+
+
+def evaluate(eval_step, model, data: DeviceDataset, batch_size: int,
+             mesh=None) -> Dict[str, float]:
     """Full-dataset eval: average loss, mean IoU, containment mIoU (over the
-    videos with at least one containment frame)."""
+    videos with at least one containment frame). With `mesh`, each rank runs
+    its slice of every batch and the results are gathered, so every rank
+    returns the same metrics."""
     model.eval()
     total = 0
     loss_sum = 0.0
     video_ious, cont_sums, cont_counts = [], [], []
+    rows = slice(None) if mesh is None else batch_sharding(mesh, batch_size)
     for indices, real in data.batch_indices(batch_size):
-        boxes, labels, mask, _ = data.batch(indices)
+        boxes, labels, mask, _ = data.batch(indices[rows])
         metrics, vid_iou, c_sum, c_cnt = eval_step(model, boxes, labels, mask)
-        loss_sum += float(metrics["loss"]) * real
+        loss = metrics["loss"]
+        if mesh is not None:
+            loss, vid_iou, c_sum, c_cnt = _gather_eval(mesh, loss, vid_iou, c_sum, c_cnt)
+        loss_sum += float(loss) * real
         video_ious.append(vid_iou.cpu().numpy()[:real])
         cont_sums.append(c_sum.cpu().numpy()[:real])
         cont_counts.append(c_cnt.cpu().numpy()[:real])
@@ -195,18 +250,29 @@ def _profiler(profile_dir: str, device: torch.device):
 
 def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
                   dev_dataset: IngestedDataset, train_config, model_config: Dict[str, int], *,
-                  resume: bool = False, device=None) -> TrainResult:
+                  mesh=None, resume: bool = False, device=None) -> TrainResult:
     """Full training run with the reference's recipe
     (`configs/training_config.json`): Adam, plateau LR on the train loss,
     best-dev-mIoU checkpoints. `device` defaults to the config's: "cpu" is
-    the CPU, anything else (the shipped "tpu" too) the card."""
+    the CPU, anything else (the shipped "tpu" too) the card. With `mesh`
+    (`parallel/mesh.py::make_mesh`), data parallel over its data dim; every
+    rank calls this with the same datasets and config and its own device."""
     cfg: TrainingConfig = training_config_from(train_config)
     device = resolve_device(config_device(cfg.device) if device is None else device)
     _fp32_products(device)
     seed = cfg.seed
-    batch_size = cfg.batch_size
+    # batches are padded to a fixed size; keep them divisible by the data width
+    width = 1 if mesh is None else data_width(mesh)
+    batch_size = -(-cfg.batch_size // width) * width
     eval_batch_size = min(cfg.inference_batch_size,
                           max(len(train_dataset), len(dev_dataset), 1))
+    eval_batch_size = -(-eval_batch_size // width) * width
+    rows = slice(None) if mesh is None else batch_sharding(mesh, batch_size)
+    rank = 0 if mesh is None else dist.get_rank()
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier(group=data_group(mesh))
 
     train_data = DeviceDataset(train_dataset, device)
     dev_data = DeviceDataset(dev_dataset, device)
@@ -221,6 +287,7 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
     highest_dev_iou = -1.0
     ckpt_dir = Path(cfg.checkpoints_path) / spec.name
     if resume:
+        barrier()
         latest = ckpt.latest_checkpoint(ckpt_dir / "resume")
         if latest is not None:
             meta = ckpt.restore_train_state(latest, model, optimizer)
@@ -229,11 +296,14 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
                 group["lr"] = scheduler.lr
             start_epoch = int(meta["epoch"])
             highest_dev_iou = float(meta["highest_dev_iou"])
-            print(f"Resumed from {latest} at epoch {start_epoch}")
+            if rank == 0:
+                print(f"Resumed from {latest} at epoch {start_epoch}")
 
     # dropout's generator, seeded from the training seed (JAX: PRNGKey(seed + 1))
-    generator = torch.Generator(device).manual_seed(seed + 1)
-    train_step = make_train_step(spec, optimizer, generator)
+    # and the rank
+    generator = torch.Generator(device).manual_seed(seed + 1 + rank)
+    stepped = model if mesh is None else DataParallel(model, mesh, layers_entry)
+    train_step = make_train_step(spec, optimizer, generator, mesh)
     eval_step = make_eval_step(spec)
 
     history = []
@@ -245,7 +315,8 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
         for epoch in range(start_epoch, cfg.num_epochs):
             epoch_num = epoch + 1
             profiler = (_profiler(cfg.profile_dir, device)
-                        if cfg.profile_dir is not None and epoch == start_epoch else None)
+                        if cfg.profile_dir is not None and epoch == start_epoch and rank == 0
+                        else None)
             if profiler is not None:
                 profiler.start()
             epoch_start = time.time()
@@ -254,10 +325,11 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
 
             for batch_idx, (indices, real) in enumerate(
                     train_data.batch_indices(batch_size, shuffle=True, seed=seed + epoch), 1):
-                boxes, labels, mask, tracks = train_data.batch(indices)
+                boxes, labels, mask, tracks = train_data.batch(indices[rows])
                 weights = torch.from_numpy(
-                    (np.arange(batch_size) < real).astype(np.float32)).to(device)
-                pending.append(train_step(model, boxes, labels, mask, weights, tracks))
+                    (np.arange(batch_size) < real).astype(np.float32)[rows]).to(device)
+                pending.append(train_step(stepped, boxes, labels, mask, weights, tracks,
+                                          weight_total=real))
 
                 if batch_idx % cfg.print_step == 0:
                     for m in pending:
@@ -268,12 +340,13 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
                         raise RuntimeError(f"Loss is {running['loss'] / cfg.print_step}, "
                                            f"stopping training")
                     elapsed = int(time.time() - start_time)
-                    print(f"Train Epoch: {epoch_num} [{batch_idx * batch_size}/"
-                          f"{len(train_dataset)}]\t Average Loss: Total "
-                          f"{running['loss'] / cfg.print_step:.4f}, Pred "
-                          f"{running['pred_loss'] / cfg.print_step:.4f} Consistent "
-                          f"{running['consistency_loss'] / cfg.print_step:.4f} "
-                          f"Training began {elapsed} seconds ago")
+                    if rank == 0:
+                        print(f"Train Epoch: {epoch_num} [{batch_idx * batch_size}/"
+                              f"{len(train_dataset)}]\t Average Loss: Total "
+                              f"{running['loss'] / cfg.print_step:.4f}, Pred "
+                              f"{running['pred_loss'] / cfg.print_step:.4f} Consistent "
+                              f"{running['consistency_loss'] / cfg.print_step:.4f} "
+                              f"Training began {elapsed} seconds ago")
                     running = {k: 0.0 for k in running}
 
             if profiler is not None:
@@ -281,23 +354,24 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
                     torch.cuda.synchronize(device)
                 profiler.stop()
 
-            train_metrics = evaluate(eval_step, model, train_data, eval_batch_size)
-            dev_metrics = evaluate(eval_step, model, dev_data, eval_batch_size)
+            train_metrics = evaluate(eval_step, model, train_data, eval_batch_size, mesh)
+            dev_metrics = evaluate(eval_step, model, dev_data, eval_batch_size, mesh)
             if not np.isfinite(train_metrics["loss"]):
                 raise RuntimeError(f"Loss is {train_metrics['loss']}, stopping training")
-            print(f"Epoch {epoch_num} Training Set: Loss {train_metrics['loss']:.4f}, "
-                  f"Mean IoU {train_metrics['mean_iou']:.6f}, "
-                  f"Mask Mean Iou {train_metrics['containment_mean_iou']:.6f}")
-            print(f"Epoch {epoch_num} Dev Set: Loss {dev_metrics['loss']:.4f}, "
-                  f"Mean IoU {dev_metrics['mean_iou']:.6f}, "
-                  f"Mask Mean Iou {dev_metrics['containment_mean_iou']:.6f}")
             epoch_record = {"epoch": epoch_num, "train": train_metrics, "dev": dev_metrics,
                             "epoch_seconds": round(time.time() - epoch_start, 2),
                             "learning_rate": scheduler.lr}
             history.append(epoch_record)
-            if metrics_path is not None:
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(epoch_record) + "\n")
+            if rank == 0:
+                print(f"Epoch {epoch_num} Training Set: Loss {train_metrics['loss']:.4f}, "
+                      f"Mean IoU {train_metrics['mean_iou']:.6f}, "
+                      f"Mask Mean Iou {train_metrics['containment_mean_iou']:.6f}")
+                print(f"Epoch {epoch_num} Dev Set: Loss {dev_metrics['loss']:.4f}, "
+                      f"Mean IoU {dev_metrics['mean_iou']:.6f}, "
+                      f"Mask Mean Iou {dev_metrics['containment_mean_iou']:.6f}")
+                if metrics_path is not None:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(epoch_record) + "\n")
 
             new_lr = scheduler.step(train_metrics["loss"])
             for group in optimizer.param_groups:
@@ -305,15 +379,18 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
 
             if dev_metrics["mean_iou"] > highest_dev_iou:
                 highest_dev_iou = dev_metrics["mean_iou"]
-                stamp = date.today().strftime("%d-%m-%y")
-                ckpt.save_params(ckpt_dir / f"{stamp}_{round(highest_dev_iou, 3)}.npz",
-                                 model.state_dict())
-                print(f"Saved best model so far on dev set with type {spec.name} "
-                      f"and performance mean IoU of: {round(highest_dev_iou, 3)}")
+                if rank == 0:
+                    stamp = date.today().strftime("%d-%m-%y")
+                    ckpt.save_params(ckpt_dir / f"{stamp}_{round(highest_dev_iou, 3)}.npz",
+                                     model.state_dict())
+                    print(f"Saved best model so far on dev set with type {spec.name} "
+                          f"and performance mean IoU of: {round(highest_dev_iou, 3)}")
 
-            ckpt.save_train_state(
-                ckpt_dir / "resume" / f"epoch_{epoch_num:04d}", model, optimizer,
-                {"epoch": epoch_num, "highest_dev_iou": highest_dev_iou,
-                 "scheduler": scheduler.state_dict()})
+            if rank == 0:
+                ckpt.save_train_state(
+                    ckpt_dir / "resume" / f"epoch_{epoch_num:04d}", model, optimizer,
+                    {"epoch": epoch_num, "highest_dev_iou": highest_dev_iou,
+                     "scheduler": scheduler.state_dict()})
+            barrier()
 
     return TrainResult(model=model, best_dev_iou=highest_dev_iou, history=history)

@@ -141,7 +141,24 @@ def test_evaluate_detector_gives_jax_map(runs, data, tmp_path):
         assert ours[key] == pytest.approx(theirs[key], abs=1e-6), key
 
 
-def test_mesh_is_not_taken(data):
-    train, _, _ = data
-    with pytest.raises(NotImplementedError, match="Next slices, item 7"):
-        train_detector(train, None, DetectorConfig(**CONFIG), mesh=object(), device="cpu")
+def test_mesh_runs_at_world_two(data, tmp_path):
+    """`train_detector(mesh=make_mesh())` in two gloo ranks on the CPU: the
+    batch of 3 rounds up to 4, each rank trains 2 images of every batch,
+    rank 0 evaluates and writes the checkpoints, and both ranks end with the
+    same history (losses, mAP) and the same params."""
+    from torch_dp_workers import detector_mesh_run, spawn
+
+    train, _, (dev_images, dev_csv) = data
+    train_paths = (str(train.images_dir), str(train.images_dir.parent / "detection_annotations.csv"))
+    spawn(detector_mesh_run, 2, tmp_path, str(tmp_path), train_paths,
+          (str(dev_images), str(dev_csv)), CONFIG, timeout=300)
+    histories = [json.loads((tmp_path / f"history_rank{r}.json").read_text()) for r in (0, 1)]
+    assert histories[0] == histories[1]
+    (epoch,) = histories[0]
+    assert epoch["epoch"] == 1 and len(epoch["train_losses"]) == 2  # 8 frames, batches of 4
+    assert np.all(np.isfinite(epoch["train_losses"])) and 0.0 <= epoch["mAP"] <= 1.0
+    finals = [np.load(tmp_path / f"final_rank{r}.npz") for r in (0, 1)]
+    for key in finals[0].files:
+        np.testing.assert_array_equal(finals[0][key], finals[1][key], err_msg=key)
+    assert (tmp_path / "ckpt" / "final.npz").exists()
+    assert len(list((tmp_path / "ckpt").glob("best_*.npz"))) == 1

@@ -115,6 +115,45 @@ def test_root_scripts_and_new_cli_modes_run_without_jax(tmp_path):
     assert out.strip().endswith("ok")
 
 
+def test_datagen_native_ingest_and_launched_training_run_without_jax(tmp_path):
+    """Simulated scenes, perfect perception and annotations (no cv2, no
+    PIL), then the training CLI as one rank of a launcher at world 1 (gloo):
+    the mesh, DDP and the native ingest."""
+    out = _run("""
+        import json, os
+        from pathlib import Path
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT="0")
+        import torch.distributed as dist
+        from objectpermanence_tpu_torch.__main__ import main as cli_main
+        from objectpermanence_tpu_torch.datagen.perfect_perception import (
+            PerfectPerceptionGenerator,
+        )
+        from objectpermanence_tpu_torch.datagen.scene_labels import write_annotation_files
+        from objectpermanence_tpu_torch.datagen.simulator import simulate_dataset
+        scenes, labels = simulate_dataset("sim", num_videos=3, seed=1, num_frames=30)
+        PerfectPerceptionGenerator(scenes, labels, "perception").generate()
+        ann = write_annotation_files(scenes, "ann")
+        paths = {f"{split}_{key}": value for split in ("train", "dev") for key, value in (
+            ("sample_dir", "perception"), ("labels_dir", str(labels)),
+            ("containment_file", str(ann["containment"])))}
+        json.dump({**paths, "device": "cpu", "num_epochs": 1, "batch_size": 2,
+                   "checkpoints_path": "ckpt", "cache_dir": "cache"}, open("train.json", "w"))
+        json.dump({"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 8,
+                   "videos_hidden_dim": 8}, open("model.json", "w"))
+        assert cli_main(["training", "--model_type", "opnet", "--model_config", "model.json",
+                         "--training_config", "train.json"]) == 0
+        assert not dist.is_initialized()
+        assert (Path("ckpt") / "opnet" / "resume" / "epoch_0001" / "state.npz").exists()
+        assert len(list(Path("cache").glob("ingest_*.npz"))) == 1
+        assert sys.modules["jax"] is None
+        leaked = [m for m in sys.modules if m.startswith("objectpermanence_tpu.")]
+        assert not leaked, leaked
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")
+
+
 def test_entry_points_raise_without_a_card(tmp_path):
     shipped = str(REPO / "configs" / "preprocess_config.json")
     out = _run("""
