@@ -40,7 +40,13 @@ perception) natively and in Python (arrays equal, both host times), trains
 the shipped OPNet an epoch on them under a one-rank NCCL process group (DDP,
 `training_main(mesh=make_mesh())`; K2/K3/K4) and without one (within 1e-6),
 runs an FSDP2 step and the dettrain detector's step under DDP (K7/K8), each
-against its single-device twin and timed beside it, times every kernel beside its
+against its single-device twin and timed beside it, holds each model-parallel
+mesh at world 1 over NCCL against its plain twin and times it beside it (a
+tensor-parallel train step, K2/K3; the sequence-parallel OPNet and
+transformer_lstm forwards and IoU, K4; the pipeline's forward, K4, and train
+step, K2/K3, as one stage of OPNet's four stage functions over 4
+microbatches; the expert-parallel MoE head against the dense one), runs
+`dryrun_multichip(1, device="cuda")` in that group, times every kernel beside its
 bound, its plain version and a library yardstick where there is one, and
 prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -3160,6 +3166,362 @@ def phase_detector_dp_step(device, mesh, train_set):
     return launches
 
 
+# the model-parallel meshes (tensor, sequence, pipeline and expert parallel) and
+# the dry run, each at world 1 over NCCL on the one card (their numerics across
+# ranks are held against JAX on the CPU at world 2 and 4), at the shipped OPNet's
+# full width and T=300: the TP step at the train batch of 16, the SP forward at
+# the train path's eval batch of 64 and the shipped transformer_lstm at 16, the
+# pipeline as one stage composing OPNet's four stage functions over 4
+# microbatches of 4 videos, the expert-parallel head on the video LSTM's hidden
+# (512) with 4 experts x 128, as opnet_moe ships it
+SP_BATCH = 64
+PP_MICROBATCHES = 4
+MP_STEPS = 10        # calls timed per variant
+# at width 1 the gathers, slices and all-reduces are copies and the products
+# keep their shapes: the TP, SP and PP forwards equal the plain ones bitwise or
+# within MP_ATOL (outputs of order 1)
+MP_ATOL = 1e-6
+# the expert-parallel head runs each expert's product alone where the dense head
+# runs all experts in one einsum (sums in another order): within EP_RTOL x
+# max(1, max |dense's|), forward and gradients
+EP_RTOL = 1e-5
+
+
+def opnet_train_batch(device, batch=TRAIN_BATCH):
+    """The served boxes, their labels and an empty containment mask, tiled to
+    `batch` videos."""
+    with np.load(BENCH_CACHE) as blob:
+        labels = blob["labels"][:, :FRAMES].astype(np.float32)
+    labels = np.tile(labels, (-(-batch // labels.shape[0]), 1, 1))[:batch]
+    return (served_boxes(batch, device), torch.from_numpy(labels).to(device),
+            torch.zeros(batch, FRAMES, 4, dtype=torch.bool, device=device))
+
+
+def step_record(model):
+    """(grads, params) of a model after a step, whole (DTensors gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
+    grads = {n: whole(p.grad) for n, p in model.named_parameters()}
+    params = {n: whole(p) for n, p in model.named_parameters()}
+    return grads, params
+
+
+def held_within_noise(tag, ours, plain, again):
+    """Relative diffs of a mesh's step against the plain step, beside what
+    two plain steps differ by; each within DET_DP_NOISE x that noise
+    (floor DP_RTOL), as `detector_dp_step` holds DDP."""
+    diffs = {}
+    for i, what in enumerate(("grad", "param")):
+        diffs[f"{what}_rel_diff"] = max(rel_diff(v, plain[i][k]) for k, v in ours[i].items())
+        diffs[f"{what}_noise"] = max(rel_diff(again[i][k], plain[i][k]) for k in plain[i])
+        diffs[f"{what}_bound"] = max(DET_DP_NOISE * diffs[f"{what}_noise"], DP_RTOL)
+        assert diffs[f"{what}_rel_diff"] <= diffs[f"{what}_bound"], \
+            f"{tag}: the {what}s differ from the plain step's: {diffs}"
+    return diffs
+
+
+def phase_tp_step(device, mesh, smi):
+    """One train step of the shipped OPNet sharded over the (1, 1) mesh's
+    `model` dim (`shard_params(strict=True)`, `make_train_step` with the
+    mesh) against two plain steps from the same seeded weights: loss,
+    gradients and params within the plain steps' noise; the weights and
+    Adam's moments keep their shards; K2 and K3 launched; both steps timed."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from objectpermanence_tpu_torch.parallel.sharding import shard_params
+    from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
+    boxes, labels, mask = opnet_train_batch(device)
+    runs = {}
+    for tag in ("tp", "plain", "plain_again"):
+        spec, model, optimizer = opnet_step_setup(device)
+        if tag == "tp":
+            model = shard_params(model, mesh, strict=True)
+            optimizer = make_optimizer(model.parameters(), 1e-3)
+        step = make_train_step(spec, optimizer, mesh=mesh if tag == "tp" else None)
+        read = reset_launches()
+        loss = float(step(model, boxes, labels, mask)["loss"])
+        torch.cuda.synchronize()
+        launches = read()
+        record = step_record(model)
+        if tag == "tp":
+            w_hh = dict(model.named_parameters())["video_lstm.w_hh"]
+            for tensor in (w_hh, optimizer.state[w_hh]["exp_avg"]):
+                assert isinstance(tensor, DTensor) and tuple(tensor.placements) == (
+                    Replicate(), Shard(1)), f"tp sharding lost: {tensor.placements}"
+        ms = None
+        if tag != "plain_again":
+            ms = time_ms(lambda: step(model, boxes, labels, mask), iters=MP_STEPS)
+        runs[tag] = (loss, record, launches, ms)
+    (loss, record, launches, tp_ms), (plain_loss, plain, _, plain_ms) = runs["tp"], runs["plain"]
+    diffs = held_within_noise("tp_step", record, plain, runs["plain_again"][1])
+    log("tp_step", batch=TRAIN_BATCH, frames=FRAMES, mesh="(data 1, model 1)", loss=loss,
+        loss_rel_diff=0.0 if loss == plain_loss else rel_diff(loss, plain_loss), **diffs,
+        launches=json.dumps(launches), tp_step_ms=tp_ms, plain_step_ms=plain_ms, card=repr(smi))
+    assert launches["K2"] > 0 and launches["K3"] > 0, f"the TP step skipped K2/K3: {launches}"
+    assert launches["K1"] == 0, launches
+    assert abs(loss - plain_loss) <= DP_RTOL * abs(plain_loss), (loss, plain_loss)
+    return launches
+
+
+def phase_sp_forward(device, mesh, smi):
+    """The sequence-parallel OPNet forward (flagship weights, B=64) and
+    transformer_lstm forward (shipped width, seeded, B=16) on the (1, 1)
+    mesh against the plain `forward_layers` (K4): within MP_ATOL; K4
+    launched once a recurrence; then the SP IoU of the forward's boxes
+    against the eval step's formula, and its self-IoU 1. Both forwards timed
+    against the plain ones."""
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes, iou_xyxy
+    from objectpermanence_tpu_torch.parallel.sequence import (
+        make_sequence_parallel_iou, make_sequence_parallel_opnet_forward,
+        make_sequence_parallel_transformer_forward,
+    )
+    from objectpermanence_tpu_torch.utils.checkpoint import load_params
+    model_config = json.loads((REPO / "configs" / "opnet_model_config.json").read_text())
+    opnet = get_model_spec("opnet").build(model_config)
+    opnet.load_state_dict(load_params(FLAGSHIP_NPZ))
+    opnet = opnet.to(device).eval()
+    _, _, transformer = model_setup("transformer_lstm", device)
+    boxes, labels, mask = opnet_train_batch(device, SP_BATCH)
+    boxes5 = served_boxes(TRAIN_BATCH, device)[..., :5].contiguous()
+    cases = {"opnet": (make_sequence_parallel_opnet_forward(mesh), opnet, boxes, 2),
+             "transformer_lstm": (make_sequence_parallel_transformer_forward(mesh), transformer,
+                                  boxes5, lstm_layers(transformer))}
+    out, launches = {}, {}
+    for name, (forward, model, inputs, recurrences) in cases.items():
+        read = reset_launches()
+        got = forward(model, inputs)
+        torch.cuda.synchronize()
+        launches[name] = read()
+        with torch.no_grad():
+            want = model.forward_layers(inputs)
+        got, want = (g if isinstance(g, tuple) else (g,) for g in (got, want))
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        assert launches[name]["K4"] == recurrences and sum(launches[name].values()) == \
+            recurrences, f"sp {name}: {launches[name]}"
+        assert err <= MP_ATOL, f"sp {name} forward differs from the plain one by {err}"
+        sp_ms = time_ms(lambda: forward(model, inputs), iters=MP_STEPS)
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: model.forward_layers(inputs), iters=MP_STEPS)
+        out[name] = dict(max_abs_diff=err, sp_ms=sp_ms, plain_ms=plain_ms)
+        if name == "opnet":
+            y = got[0]
+    sp_iou = make_sequence_parallel_iou(mesh)
+    mean_iou, masked_sum, masked_frames = sp_iou(y, labels, mask)
+    iou = iou_xyxy(denormalize_boxes(y).float(), denormalize_boxes(labels).float())
+    # a sum over the frames, then / T, against the eval step's mean: within 1e-6
+    iou_diff = max_err(mean_iou, iou.mean(dim=1))
+    assert iou_diff <= 1e-6 and not masked_sum.any() and not masked_frames.any(), \
+        f"sp IoU differs from the eval step's by {iou_diff}"
+    self_iou = sp_iou(labels.clamp(0, 1).sort(dim=-1).values, labels.clamp(0, 1).sort(
+        dim=-1).values, mask)[0]
+    assert torch.allclose(self_iou, torch.ones_like(self_iou)), "sp self-IoU != 1"
+    log("sp_forward", opnet_batch=SP_BATCH, transformer_batch=TRAIN_BATCH, frames=FRAMES,
+        mesh="(data 1, model 1)", results=json.dumps(out), launches=json.dumps(launches),
+        mean_iou=float(mean_iou.mean()), iou_max_abs_diff=iou_diff, card=repr(smi))
+    return {tag: sum(l[tag] for l in launches.values()) for tag in launches["opnet"]}
+
+
+def pp_whole_stage(config):
+    """OPNet's four stage functions composed into one stage (a pipe of one
+    rank), and the parameter names of its stage tree."""
+    from objectpermanence_tpu_torch.parallel.pipeline import (
+        opnet_pipeline_stages, opnet_stage_trees,
+    )
+    fns, _ = opnet_pipeline_stages(config, 4)
+
+    def whole(local, transit, x_mb):
+        for i, fn in enumerate(fns):
+            transit = fn(local[f"s{i}"], transit, x_mb)
+        return transit
+
+    names = ("att_lstm.w_ih", "att_lstm.w_hh", "att_head.w", "video_lstm.w_ih",
+             "video_lstm.w_hh", "box_head.w")
+    trees = opnet_stage_trees({n: n for n in names}, 4)
+    stage_names = {f"s{i}.{k}.{leaf}": name for i, tree in enumerate(trees)
+                   for k, sub in tree.items() for leaf, name in sub.items()}
+
+    def stage_tree(model):
+        state = dict(model.named_parameters())
+        return {f"s{i}": {k: {leaf: state[name] for leaf, name in sub.items()}
+                          for k, sub in tree.items()} for i, tree in enumerate(trees)}
+
+    return whole, stage_names, stage_tree
+
+
+def phase_pp(device, mesh, smi):
+    """The GPipe engine at one pipe rank: one stage composing OPNet's four
+    stage functions, 4 microbatches of 4 videos, the shipped OPNet from the
+    training seed. Its forward (K4 per microbatch and recurrence) against
+    the plain `forward_layers` on the same microbatches, within MP_ATOL;
+    one train step (K2/K3 per microbatch and recurrence) against the plain
+    step over the same microbatches, within the noise of two such steps;
+    the plain step at the whole batch beside it (GRAD_RTOL: K2/K3 at B=16
+    against B=4 sum in another order). Each timed against the plain one at
+    the whole batch."""
+    from objectpermanence_tpu_torch.parallel.pipeline import (
+        make_gpipe_forward, make_gpipe_train_step, stack_stage_param_list,
+    )
+    from objectpermanence_tpu_torch.train.losses import total_loss
+    from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
+    model_config = json.loads((REPO / "configs" / "opnet_model_config.json").read_text())
+    whole, stage_names, stage_tree = pp_whole_stage(model_config)
+    boxes, labels, mask = opnet_train_batch(device)
+    spec, model, _ = opnet_step_setup(device)
+    local = stack_stage_param_list([stage_tree(model)], mesh)
+    forward = make_gpipe_forward(mesh, [whole], transit_dim=4, out_dim=4,
+                                 num_microbatches=PP_MICROBATCHES)
+    read = reset_launches()
+    y = forward(local, boxes)
+    torch.cuda.synchronize()
+    fwd_launches = read()
+    with torch.no_grad():
+        want = torch.cat([model.forward_layers(mb)[0] for mb in boxes.chunk(PP_MICROBATCHES)])
+        whole_batch = model.forward_layers(boxes)[0]
+    fwd_err, fwd_whole_err = max_err(y, want), max_err(y, whole_batch)
+    assert fwd_err <= MP_ATOL, f"the pp forward differs from the plain one by {fwd_err}"
+    assert fwd_whole_err <= ATOL, f"the pp forward differs from the whole batch's: {fwd_whole_err}"
+    assert fwd_launches["K4"] == 2 * PP_MICROBATCHES and sum(fwd_launches.values()) == \
+        fwd_launches["K4"], f"pp forward: {fwd_launches}"
+    pp_fwd_ms = time_ms(lambda: forward(local, boxes), iters=MP_STEPS)
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: model.forward_layers(boxes), iters=MP_STEPS)
+
+    optimizer = make_optimizer(local.parameters(), 1e-3)
+    step = make_gpipe_train_step(mesh, [whole], optimizer, transit_dim=4, out_dim=4,
+                                 num_microbatches=PP_MICROBATCHES)
+    read = reset_launches()
+    metrics = step(local, boxes, labels, mask)
+    torch.cuda.synchronize()
+    step_launches = read()
+    grads, params = step_record(local)
+    ours = ({stage_names[k]: v for k, v in grads.items()},
+            {stage_names[k]: v for k, v in params.items()})
+    pp_step_ms = time_ms(lambda: step(local, boxes, labels, mask), iters=MP_STEPS)
+
+    def microbatched_step():
+        _, twin, twin_opt = opnet_step_setup(device)
+        twin_opt.zero_grad(set_to_none=True)
+        y = torch.cat([twin.forward_layers(mb)[0] for mb in boxes.chunk(PP_MICROBATCHES)])
+        loss = total_loss(y, labels, mask, False)[0]
+        loss.backward()
+        twin_opt.step()
+        return step_record(twin), float(loss.detach())
+
+    plain, plain_loss = microbatched_step()
+    again, _ = microbatched_step()
+    diffs = held_within_noise("pp_step", ours, plain, again)
+    _, full, full_opt = opnet_step_setup(device)
+    full_step = make_train_step(spec, full_opt)
+    full_step(full, boxes, labels, mask)
+    full_grads, _ = step_record(full)
+    whole_grad_rel = max(rel_diff(v, full_grads[k]) for k, v in ours[0].items())
+    assert whole_grad_rel <= GRAD_RTOL, f"pp grads vs the whole batch's: {whole_grad_rel}"
+    plain_step_ms = time_ms(lambda: full_step(full, boxes, labels, mask), iters=MP_STEPS)
+    log("pp", batch=TRAIN_BATCH, microbatches=PP_MICROBATCHES, frames=FRAMES,
+        mesh="(data 1, pipe 1)", fwd_max_abs_diff=fwd_err, fwd_whole_batch_diff=fwd_whole_err,
+        loss=float(metrics["loss"]), plain_loss=plain_loss, **diffs,
+        grad_rel_diff_whole_batch=whole_grad_rel, fwd_launches=json.dumps(fwd_launches),
+        step_launches=json.dumps(step_launches), pp_fwd_ms=pp_fwd_ms, plain_fwd_ms=plain_fwd_ms,
+        pp_step_ms=pp_step_ms, plain_step_ms=plain_step_ms, card=repr(smi))
+    assert step_launches["K2"] == 2 * PP_MICROBATCHES and step_launches["K3"] == \
+        2 * PP_MICROBATCHES, f"pp step: {step_launches}"
+    return {tag: fwd_launches[tag] + step_launches[tag] for tag in fwd_launches}
+
+
+def phase_ep(device, mesh, smi):
+    """The expert-parallel MoE head (4 experts x 128 on the video hidden of
+    512, seeded) on the (1, 1) (data, expert) mesh, on the flagship OPNet's
+    video LSTM hidden of the train batch, against the dense `MoEHead`:
+    forward and the gradients of mean(y^2) within EP_RTOL x max(1, max
+    |dense's|); the experts held as one shard; no kernel of the port
+    launched (library products). Both timed, forward and backward."""
+    from objectpermanence_tpu_torch.models.moe import MoEHead
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    from objectpermanence_tpu_torch.parallel.expert import (
+        make_expert_parallel_moe_head, shard_expert_params,
+    )
+    from objectpermanence_tpu_torch.utils.checkpoint import load_params
+    model_config = json.loads((REPO / "configs" / "opnet_model_config.json").read_text())
+    opnet = get_model_spec("opnet").build(model_config)
+    opnet.load_state_dict(load_params(FLAGSHIP_NPZ))
+    opnet = opnet.to(device).eval()
+    with torch.no_grad():
+        h = opnet.video_lstm(opnet.who_to_attend(served_boxes(TRAIN_BATCH, device))[0])
+    hidden = model_config["videos_hidden_dim"]
+    dense = MoEHead(hidden, 4, num_experts=4, expert_hidden=128,
+                    generator=torch.Generator().manual_seed(MODELS_SEED)).to(device)
+    sharded = shard_expert_params(dense, mesh)
+    head = make_expert_parallel_moe_head(mesh)
+    read = reset_launches()
+    y = head(sharded, h)
+    (y ** 2).mean().backward()
+    torch.cuda.synchronize()
+    launches = read()
+    want = dense(h)
+    (want ** 2).mean().backward()
+
+    def err(a, b):
+        return max_err(a, b) / max(1.0, float(b.abs().max()))
+    errors = {"forward": err(y.detach(), want.detach())}
+    errors.update({f"grad_{k}": err(p.grad.to_local(), getattr(dense, k).grad)
+                   for k, p in sharded.items()})
+    assert all(v <= EP_RTOL for v in errors.values()), f"ep head differs: {errors}"
+    assert sharded["w1"].to_local().shape[0] == 4, "ep experts not held whole at width 1"
+    assert sum(launches.values()) == 0, f"the ep head launched a kernel: {launches}"
+
+    def ep_pass():
+        (head(sharded, h) ** 2).mean().backward()
+
+    def dense_pass():
+        (dense(h) ** 2).mean().backward()
+
+    log("ep_head", batch=TRAIN_BATCH, frames=FRAMES, hidden=hidden, experts=4,
+        expert_hidden=128, mesh="(data 1, expert 1)", rel_errors=json.dumps(errors),
+        launches=json.dumps(launches), ep_fwd_bwd_ms=time_ms(ep_pass, iters=MP_STEPS),
+        dense_fwd_bwd_ms=time_ms(dense_pass, iters=MP_STEPS), card=repr(smi))
+    return launches
+
+
+def phase_dryrun(device, smi):
+    """`dryrun_multichip(1, device="cuda")` inside the world-1 NCCL group:
+    the dp+tp step (K2/K3), the SP IoU and forward (K4) and the FSDP step at
+    the flagship width; its closing line in JAX's form."""
+    from objectpermanence_tpu_torch.parallel.dryrun import dryrun_multichip
+    read = reset_launches()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(1, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read()
+    log("dryrun", line=repr(line), seconds=f"{seconds:.3f}", launches=json.dumps(launches),
+        card=repr(smi))
+    assert line.startswith("dryrun_multichip(1): mesh={'data': 1, 'model': 1} loss=") and \
+        line.endswith("dp+tp+sp(iou+opnet-fwd)+fsdp ok"), line
+    assert launches["K2"] > 0 and launches["K3"] > 0 and launches["K4"] > 0, launches
+    assert launches["K1"] == 0, launches
+    return launches
+
+
+def phase_model_parallel(device, smi):
+    """The model-parallel phases and the dry run in one world-1 NCCL process
+    group; returns their launches, by kernel."""
+    import torch.distributed as dist
+    from objectpermanence_tpu_torch.parallel.mesh import make_expert_mesh, make_pipe_mesh
+    mesh = world_one_nccl()
+    try:
+        parts = [phase_tp_step(device, mesh, smi), phase_sp_forward(device, mesh, smi),
+                 phase_pp(device, make_pipe_mesh(n_data=1, n_pipe=1), smi),
+                 phase_ep(device, make_expert_mesh(n_data=1, n_expert=1), smi),
+                 phase_dryrun(device, smi)]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {tag: sum(part[tag] for part in parts) for tag in parts[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3205,10 +3567,11 @@ def main() -> int:
     phase_detect_profile(detector)
     phase_detect_800_profile(det800_bf16, det800_detector(device, "float32"))
     dp_launches = phase_dp_train_path(phase_native_ingest(), device, train_set)
+    mp_launches = phase_model_parallel(device, smi)
     kernels = [phase_times(weights, device, launches, max_abs_err),
                phase_times(weights, device, k1_bf16_launches, k1_bf16_error, torch.bfloat16)]
     lstm_launches = {tag: train_launches[tag] + models_launches[tag] + dp_launches[tag]
-                     for tag in ("K2", "K3", "K4")}
+                     + mp_launches[tag] for tag in ("K2", "K3", "K4")}
     kernels += phase_lstm_times(weights, device, lstm_launches, lstm_errors)
     roi_launches = {**preprocess_launches, "K7": preprocess_launches["K7"] + dp_launches["K7"]}
     kernels += phase_roi_times(roi_inputs, roi_launches, roi_errors)

@@ -17,13 +17,22 @@ package's `models/convert_reasoning.py` does.
 The SiamRPN tracker (`models/siam.py`) keeps the upstream `SiamRPNvot`
 names, so `siam_params_from_jax` maps JAX's tree onto them and
 `siam_state_dict_from_reference` only checks an upstream blob's keys.
+
+The model-parallel layouts of `parallel/` cross too: `shard_from_jax` gives
+each rank its part of a tree that JAX shards over a mesh dim (tensor
+parallelism's `shard_params`, expert parallelism's `shard_expert_params`)
+and `shards_to_jax` joins the parts; `pipeline_stages_from_jax` unpads
+JAX's stacked pipeline tree into each stage's state_dict and
+`pipeline_stages_to_jax` stacks and pads them back.
 """
 
 from collections import OrderedDict
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+
+from objectpermanence_tpu_torch.parallel.pipeline import _union_stack
 
 
 def params_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
@@ -198,3 +207,69 @@ def siam_state_dict_from_reference(state_dict: Dict[str, Any]) -> "OrderedDict[s
         raise ValueError(f"not a SiamRPNvot state_dict: missing {missing}, unexpected {extra}")
     return OrderedDict((k, torch.as_tensor(np.asarray(given[k])).to(torch.float32).contiguous())
                        for k in want)
+
+
+# ---------------------------------------------------------------------------
+# the model-parallel layouts of `parallel/`: each rank's part of a tree
+
+
+def _flat(tree: Mapping, prefix: str = "") -> "OrderedDict[str, Any]":
+    """Nested dicts -> a flat dict whose keys join the path with dots (only
+    dicts are walked: a leaf may be an array or a shape)."""
+    out = OrderedDict()
+    for key in sorted(tree):
+        if isinstance(tree[key], Mapping):
+            out.update(_flat(tree[key], f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = tree[key]
+    return out
+
+
+def _part(value: np.ndarray, dim: int, width: int, rank: int) -> np.ndarray:
+    if value.shape[dim] % width:
+        raise ValueError(f"dim {dim} of {value.shape} does not split over {width} ranks")
+    return np.split(value, width, axis=dim)[rank]
+
+
+def shard_from_jax(params: Dict[str, Any], dims: Dict[str, Optional[int]], width: int,
+                   rank: int) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX tree (numpy leaves) -> rank `rank`'s part of each leaf of `width`
+    ranks, as a flat state_dict: the `rank`-th contiguous part along the
+    leaf's dim in `dims` (`parallel/sharding.py::tp_param_shardings`,
+    `parallel/expert.py::expert_param_shardings`), the whole leaf where the
+    dim is None. These are the numbers JAX's device of that index along the
+    mesh dim holds."""
+    return OrderedDict((name, torch.from_numpy(np.array(
+        value if dims[name] is None else _part(np.asarray(value), dims[name], width, rank))))
+        for name, value in _flat(params).items())
+
+
+def shards_to_jax(shards: Sequence[Dict[str, torch.Tensor]],
+                  dims: Dict[str, Optional[int]]) -> Dict[str, Any]:
+    """The ranks' parts (flat state_dicts, in rank order) -> the whole JAX
+    tree of numpy arrays, the inverse of `shard_from_jax`."""
+    whole = OrderedDict()
+    for name, dim in dims.items():
+        parts = [np.asarray(s[name].detach().cpu()) for s in shards]
+        whole[name] = torch.from_numpy(parts[0] if dim is None else np.concatenate(parts, dim))
+    return params_to_jax(whole)
+
+
+def pipeline_stages_from_jax(stacked: Dict[str, Any], shapes: Sequence[Mapping]) -> List[
+        "OrderedDict[str, torch.Tensor]"]:
+    """JAX's stacked pipeline tree (a leading stage axis, every leaf padded
+    to the largest of its path, `stack_stage_param_list`) -> each stage's
+    state_dict, unpadded to its leaves' `shapes` (per stage, nested dicts of
+    shapes: `parallel/pipeline.py::opnet_stage_shapes`), as JAX's
+    `_unpad_lstm` and `_unpad_head` read it."""
+    flat = _flat(stacked)
+    return [OrderedDict((name, torch.from_numpy(np.array(
+        np.asarray(flat[name])[(stage,) + tuple(slice(0, n) for n in shape)])))
+        for name, shape in _flat(tree).items())
+        for stage, tree in enumerate(shapes)]
+
+
+def pipeline_stages_to_jax(stages: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The stages' state_dicts -> JAX's stacked pipeline tree: paths unioned,
+    the padding and a stage's missing leaves zeros (`_union_stack`)."""
+    return _union_stack([params_to_jax(stage) for stage in stages])

@@ -2,7 +2,7 @@
 counterpart of the dense single-device head in
 `objectpermanence_tpu/parallel/expert.py` (`moe_head_init`, `moe_route`,
 `moe_head_apply`, `moe_balance_loss`). The expert-parallel layers beside it
-there are not ported yet (ROADMAP.md, Next slices, item 7).
+there are `parallel/expert.py`'s, which reuse this head's routing.
 
 A router picks one expert per token (top-1; a tie goes to the first index,
 as `jnp.argmax`), every expert's two-layer MLP runs on every token, and the

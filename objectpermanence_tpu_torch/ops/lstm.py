@@ -41,6 +41,18 @@ def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor) -> tor
     return torch.stack(hs, dim=1)
 
 
+def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """One layer over `x (B, T, D)` -> `(B, T, H)`: K2/K3 on a CUDA tensor
+    when a gradient is recorded, K4 when none is, the plain loop on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return lstm_forward(x, w_ih, w_hh)
+    params = {"w_ih": w_ih, "w_hh": w_hh}
+    if torch.is_grad_enabled() and (x.requires_grad or w_ih.requires_grad or w_hh.requires_grad):
+        return lstm_scan_fused(params, x)
+    return lstm_scan_pallas(params, x)
+
+
 class LSTM(nn.Module):
     """Parameters `w_ih`, `w_hh` as in the JAX pytree; U(-k, k) init with
     k = 1/sqrt(H), as torch.nn.LSTM and `lstm_init`."""
@@ -54,13 +66,7 @@ class LSTM(nn.Module):
             torch.empty(hidden_dim, 4 * hidden_dim).uniform_(-k, k, generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return lstm_forward(x, self.w_ih, self.w_hh)
-        params = {"w_ih": self.w_ih, "w_hh": self.w_hh}
-        if torch.is_grad_enabled() and (x.requires_grad or self.w_ih.requires_grad
-                                        or self.w_hh.requires_grad):
-            return lstm_scan_fused(params, x)
-        return lstm_scan_pallas(params, x)
+        return lstm_layer(x, self.w_ih, self.w_hh)
 
 
 class StackedLSTM(nn.ModuleList):

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -89,23 +90,52 @@ def make_expert_mesh(n_data: Optional[int] = None, n_expert: int = 2) -> DeviceM
     return _make(n_data, n_expert, (DATA_AXIS, EXPERT_AXIS))
 
 
+def axis_width(mesh: DeviceMesh, axis: str) -> int:
+    """The number of ranks along the mesh dim `axis` (`data`, `model`,
+    `pipe` or `expert`)."""
+    return mesh[axis].size()
+
+
+def axis_group(mesh: DeviceMesh, axis: str):
+    """The process group of this rank's line along the mesh dim `axis`."""
+    return mesh[axis].get_group()
+
+
+def axis_rank(mesh: DeviceMesh, axis: str) -> int:
+    """This rank's index along the mesh dim `axis`."""
+    return mesh[axis].get_local_rank()
+
+
 def data_width(mesh: DeviceMesh) -> int:
-    return mesh[DATA_AXIS].size()
+    return axis_width(mesh, DATA_AXIS)
 
 
 def data_group(mesh: DeviceMesh):
-    return mesh[DATA_AXIS].get_group()
+    return axis_group(mesh, DATA_AXIS)
+
+
+def replicate(mesh: DeviceMesh) -> list:
+    """The placements of a tensor held whole by every rank of `mesh`
+    (`P()` in JAX)."""
+    return [Replicate()] * mesh.ndim
+
+
+def axis_slice(mesh: DeviceMesh, axis: str, size: int, what: str = "dim") -> slice:
+    """This rank's contiguous slice of a dim of `size` split over the mesh
+    dim `axis`, which must divide it (what `P(axis)` gives each JAX
+    device)."""
+    width = axis_width(mesh, axis)
+    if size % width:
+        raise ValueError(f"{what} {size} does not divide over {width} {axis} ranks")
+    per = size // width
+    start = axis_rank(mesh, axis) * per
+    return slice(start, start + per)
 
 
 def batch_sharding(mesh: DeviceMesh, batch_size: int) -> slice:
     """This rank's contiguous slice of a batch axis of `batch_size`, which
     the data width divides (what `P(DATA_AXIS)` gives each JAX device)."""
-    width = data_width(mesh)
-    if batch_size % width:
-        raise ValueError(f"batch {batch_size} does not divide over {width} data ranks")
-    per = batch_size // width
-    start = mesh[DATA_AXIS].get_local_rank() * per
-    return slice(start, start + per)
+    return axis_slice(mesh, DATA_AXIS, batch_size, "batch")
 
 
 def shard_batch(batch: dict, mesh: DeviceMesh) -> dict:

@@ -94,8 +94,10 @@ def make_train_step(spec: ModelSpec, optimizer: torch.optim.Optimizer, generator
     where the model has it, runs in train mode from `generator` (on the
     model's device). Gradients stay in `param.grad` until the next step.
 
-    With `mesh`, `model` is the model under `DataParallel` and the batch is
-    this rank's slice of the global batch, whose weights sum to
+    With `mesh`, `model` is the model under `DataParallel`, or sharded over
+    the mesh's `model` dim by `parallel/sharding.py::shard_params` (whose
+    gradients are averaged over `data` as they accumulate, as DDP's are),
+    and the batch is this rank's slice of the global batch, whose weights sum to
     `weight_total`. The weighted means are scaled by the rank's share of
     that sum times the data width, so DDP's mean of the gradients is the
     global batch's; the metrics returned are the global batch's, reduced

@@ -52,6 +52,29 @@ def test_every_port_module_imports_without_jax(tmp_path):
     assert int(out.split()[-1]) >= 15
 
 
+def test_model_parallel_modules_import_without_jax(tmp_path):
+    """The model-parallel half of `parallel/` and the dry run import in an
+    interpreter without JAX, and the dry run asked for the card raises."""
+    out = _run("""
+        import importlib
+        for name in ("sharding", "sequence", "pipeline", "expert", "dryrun"):
+            importlib.import_module(f"objectpermanence_tpu_torch.parallel.{name}")
+        from objectpermanence_tpu_torch.parallel.dryrun import dryrun_multichip
+        try:
+            dryrun_multichip(2)
+        except RuntimeError as exc:
+            assert "no CUDA device" in str(exc), exc
+        else:
+            raise AssertionError("ran without a card")
+        leaked = sorted(m for m in sys.modules
+                        if m == "objectpermanence_tpu" or m.startswith("objectpermanence_tpu."))
+        assert not leaked, leaked
+        assert sys.modules["jax"] is None
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")
+
+
 def test_cpu_path_runs_without_jax(tmp_path):
     out = _run("""
         import json

@@ -67,21 +67,32 @@ def _rank_main(rank, fn, world, rendezvous, args):
         dist.destroy_process_group()
 
 
-def spawn(fn, world, tmp_path, *args, timeout=300):
-    """Run `fn(rank, *args)` in `world` processes; fails the test (and kills
-    the ranks) if one raises or they are not done within `timeout` seconds."""
+def start(fn, world, tmp_path, *args, timeout=300):
+    """Start `fn(rank, *args)` in `world` processes and return `wait()`,
+    which fails the test (and kills the ranks) if one raises or they are
+    not done within `timeout` seconds of the start. The caller may work in
+    between (the JAX side of a comparison)."""
     rendezvous = Path(tmp_path) / f"rendezvous_{fn.__name__}"
     context = mp.start_processes(_rank_main, args=(fn, world, str(rendezvous), args),
                                  nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
-    try:
-        while not context.join(timeout=5):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{fn.__name__} at world {world} took over {timeout} s")
-    finally:
-        for process in context.processes:
-            if process.is_alive():
-                process.kill()
+
+    def wait():
+        try:
+            while not context.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{fn.__name__} at world {world} took over {timeout} s")
+        finally:
+            for process in context.processes:
+                if process.is_alive():
+                    process.kill()
+
+    return wait
+
+
+def spawn(fn, world, tmp_path, *args, timeout=300):
+    """Run `fn(rank, *args)` in `world` processes to their end (`start`)."""
+    start(fn, world, tmp_path, *args, timeout=timeout)()
 
 
 def _t(a):
@@ -315,3 +326,206 @@ def detector_mesh_run(rank, out_dir, train_paths, dev_paths, config):
     (out_dir / f"history_rank{rank}.json").write_text(json.dumps(result["history"]))
     np.savez(out_dir / f"final_rank{rank}.npz",
              **{k: v.detach().numpy() for k, v in result["params"].items()})
+
+
+# ---------------------------------------------------------------------------
+# the model-parallel meshes (tensor, sequence, pipeline, expert parallel), at
+# world 4 on (data 2 x model/pipe/expert 2) or (data 1 x pipe 4)
+
+MP_BATCH, MP_FRAMES, MP_STEPS = 8, 12, 2
+TRANSFORMER = {"boxes_features_dim": 16, "num_attention_heads": 2, "num_attention_layers": 1,
+               "num_lstm_layers": 2, "lstm_hidden_dim": 24}
+MOE_IN, MOE_OUT, MOE_EXPERTS, MOE_HIDDEN = 24, 4, 4, 8
+GENERIC_WIDTHS = {2: [6, 24, 4], 4: [6, 24, 16, 12, 4]}    # in, hidden..., out per pipe width
+
+
+def mp_batch(seed, batch=MP_BATCH, frames=MP_FRAMES, feat=6):
+    """(boxes, labels, mask) of one step or forward."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(batch, frames, 15, feat).astype(np.float32),
+            rng.rand(batch, frames, 4).astype(np.float32),
+            rng.rand(batch, frames, 4) > 0.5)
+
+
+def _load_npz(path):
+    with np.load(path) as blob:
+        return {k: torch.from_numpy(blob[k]) for k in blob.files}
+
+
+def _opnet(path):
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    spec = get_model_spec("opnet")
+    model = spec.build(NARROW, torch.Generator().manual_seed(0))
+    model.load_state_dict(_load_npz(path))
+    return spec, model
+
+
+def tp_steps(rank, out_dir):
+    """Tensor parallel on (data 2, model 2): each rank's shards of the
+    weights from `<out_dir>/tp_init.npz`, then MP_STEPS Adam steps of OPNet
+    (`make_train_step` with the mesh) on the batches of seeds 20, 21; each
+    rank writes its shards before and after, its gradients' shards and the
+    losses."""
+    from objectpermanence_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from objectpermanence_tpu_torch.parallel.sharding import local_shards, shard_params
+    from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    out_dir = Path(out_dir)
+    spec, model = _opnet(out_dir / "tp_init.npz")
+    mesh = make_mesh(n_data=2, n_model=2)
+    tp = shard_params(model, mesh, strict=True)
+    arrays = {f"init/{k}": v.numpy().copy() for k, v in local_shards(tp).items()}
+    optimizer = make_optimizer(tp.parameters(), LR)
+    step = make_train_step(spec, optimizer, mesh=mesh)
+    rows = batch_sharding(mesh, MP_BATCH)
+    losses = []
+    for s in range(MP_STEPS):
+        boxes, labels, mask = mp_batch(20 + s)
+        metrics = step(tp, _t(boxes[rows]), _t(labels[rows]), _t(mask[rows]))
+        losses.append(float(metrics["loss"]))
+        arrays.update({f"grad{s}/{n}": p.grad.to_local().numpy().copy()
+                       for n, p in tp.named_parameters()})
+    arrays.update({f"param/{k}": v.numpy() for k, v in local_shards(tp).items()})
+    np.savez(out_dir / f"tp_rank{rank}.npz", **arrays)
+    (out_dir / f"tp_rank{rank}.json").write_text(json.dumps(losses))
+
+
+def generic_stage(params, boxes, gate):
+    """A per-frame stage of several inputs and outputs of mixed ranks."""
+    feats = torch.einsum("bfod,dh->bfoh", boxes, params["w"]) + params["b"]
+    pooled = torch.einsum("bfoh,bfo->bfh", torch.relu(feats), torch.softmax(gate, dim=-1))
+    return pooled, pooled.sum(-1)
+
+
+def sp_suite(rank, out_dir):
+    """Sequence parallel on (data 2, model 2): the IoU, OPNet's and the
+    transformer's forwards and a generic frame-sharded stage on the inputs
+    of `<out_dir>/sp_inputs.npz`, each rank writing the global results it
+    returned; then whether frames or a batch that do not divide raise."""
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    from objectpermanence_tpu_torch.parallel.mesh import make_mesh
+    from objectpermanence_tpu_torch.parallel.sequence import (
+        frame_sharded, make_sequence_parallel_iou, make_sequence_parallel_opnet_forward,
+        make_sequence_parallel_transformer_forward,
+    )
+
+    out_dir = Path(out_dir)
+    x = _load_npz(out_dir / "sp_inputs.npz")
+    mesh = make_mesh(n_data=2, n_model=2)
+    _, opnet = _opnet(out_dir / "sp_opnet.npz")
+    transformer = get_model_spec("transformer_lstm").build(TRANSFORMER)
+    transformer.load_state_dict(_load_npz(out_dir / "sp_transformer.npz"))
+    out = {}
+    out["iou_mean"], out["iou_msum"], out["iou_mcnt"] = make_sequence_parallel_iou(mesh)(
+        x["pred"], x["labels"], x["mask"])
+    opnet_fwd = make_sequence_parallel_opnet_forward(mesh)
+    out["opnet_y"], out["opnet_logits"] = opnet_fwd(opnet, x["boxes"])
+    out["transformer_y"] = make_sequence_parallel_transformer_forward(mesh)(
+        transformer, x["boxes5"])
+    out["pooled"], out["pooled_sum"] = frame_sharded(mesh, generic_stage)(
+        {"w": x["w"], "b": x["b"]}, x["boxes"], x["gate"])
+    raised = {}
+    for what, boxes in (("frames", x["boxes"][:, :MP_FRAMES - 1]), ("batch", x["boxes"][:3])):
+        try:
+            opnet_fwd(opnet, boxes)
+            raised[what] = None
+        except ValueError as exc:
+            raised[what] = str(exc)
+    np.savez(out_dir / f"sp_rank{rank}.npz", **{k: v.numpy() for k, v in out.items()})
+    (out_dir / f"sp_rank{rank}.json").write_text(json.dumps(raised))
+
+
+def generic_stage_fns(widths):
+    def stage(i):
+        def fn(local, transit, x_mb):
+            src = x_mb if i == 0 else transit[..., :widths[i]]
+            return torch.tanh(src @ local["w"][:widths[i], :widths[i + 1]])
+        return fn
+    return [stage(i) for i in range(len(widths) - 1)]
+
+
+def pp_suite(rank, out_dir, n_pipe):
+    """Pipeline parallel on (data 4/n_pipe, pipe n_pipe): OPNet's forward
+    and one train step (Adam) from `<out_dir>/pp_init.npz` on the batch of
+    seed 30, then the generic engine on a tanh MLP of `GENERIC_WIDTHS`
+    (forward, and one step's gradients of mean(y^2)); each rank writes its
+    stage's state_dict, gradients and results."""
+    from objectpermanence_tpu_torch.parallel.mesh import make_pipe_mesh
+    from objectpermanence_tpu_torch.parallel.pipeline import (
+        make_gpipe_forward, make_gpipe_train_step, make_pipelined_opnet_forward,
+        make_pipelined_opnet_train_step, stack_stage_param_list, stack_stage_params,
+    )
+
+    out_dir = Path(out_dir)
+    _, model = _opnet(out_dir / "pp_init.npz")
+    mesh = make_pipe_mesh(n_data=4 // n_pipe, n_pipe=n_pipe)
+    local = stack_stage_params(model, mesh, num_stages=n_pipe)
+    boxes, labels, mask = (_t(a) for a in mp_batch(30))
+    arrays = {"y": make_pipelined_opnet_forward(mesh, NARROW, num_microbatches=2,
+                                                num_stages=n_pipe)(local, boxes).numpy()}
+    optimizer = torch.optim.Adam(local.parameters(), lr=LR)
+    step = make_pipelined_opnet_train_step(mesh, NARROW, optimizer, num_microbatches=2,
+                                           num_stages=n_pipe)
+    metrics = step(local, boxes, labels, mask)
+    arrays.update({f"grad/{n}": p.grad.numpy() for n, p in local.named_parameters()})
+    arrays.update({f"param/{n}": p.detach().numpy() for n, p in local.named_parameters()})
+
+    widths = GENERIC_WIDTHS[n_pipe]
+    with np.load(out_dir / "pp_generic.npz") as blob:
+        ws = [blob[f"w{i}"] for i in range(n_pipe)]
+        x = torch.from_numpy(blob["x"])
+    fns = generic_stage_fns(widths)
+    stage = stack_stage_param_list([{"w": w} for w in ws], mesh)
+    arrays["generic_y"] = make_gpipe_forward(mesh, fns, transit_dim=max(widths),
+                                             out_dim=widths[-1], num_microbatches=2)(
+        stage, x).numpy()
+    generic_step = make_gpipe_train_step(
+        mesh, fns, torch.optim.SGD(stage.parameters(), lr=0.0), transit_dim=max(widths),
+        out_dim=widths[-1], num_microbatches=2,
+        loss_fn=lambda y, labels, mask: ((y ** 2).mean(), {"loss": (y ** 2).mean()}))
+    generic_step(stage, x, x, x)
+    arrays["generic_grad"] = stage.w.grad.numpy()
+    np.savez(out_dir / f"pp{n_pipe}_rank{rank}.npz", **arrays)
+    (out_dir / f"pp{n_pipe}_rank{rank}.json").write_text(
+        json.dumps({k: float(v) for k, v in metrics.items()}))
+
+
+def ep_suite(rank, out_dir):
+    """Expert parallel on (data 2, expert 2): the MoE head of
+    `<out_dir>/ep_head.npz` on this rank's rows of `ep_inputs.npz`, its
+    output and the gradients of mean(y^2) (averaged over data), then the
+    generic layer with a gated expert; each rank writes its results and
+    the shapes it holds."""
+    from objectpermanence_tpu_torch.models.moe import MoEHead
+    from objectpermanence_tpu_torch.parallel.expert import (
+        make_expert_parallel_layer, make_expert_parallel_moe_head, shard_expert_params,
+    )
+    from objectpermanence_tpu_torch.parallel.mesh import (
+        EXPERT_AXIS, axis_slice, batch_sharding, data_group, make_expert_mesh,
+    )
+
+    out_dir = Path(out_dir)
+    x = _load_npz(out_dir / "ep_inputs.npz")
+    head = MoEHead(MOE_IN, MOE_OUT, MOE_EXPERTS, MOE_HIDDEN)
+    head.load_state_dict(_load_npz(out_dir / "ep_head.npz"))
+    mesh = make_expert_mesh(n_data=2, n_expert=2)
+    rows = batch_sharding(mesh, x["h"].shape[0])
+    sharded = shard_expert_params(head, mesh)
+    y = make_expert_parallel_moe_head(mesh)(sharded, x["h"][rows])
+    (y ** 2).mean().backward()
+    arrays = {"y": y.detach().numpy()}
+    for name, param in sharded.items():
+        grad = param.grad.to_local()
+        dist.all_reduce(grad, group=data_group(mesh))
+        arrays[f"grad/{name}"] = (grad / 2).numpy()
+        arrays[f"held/{name}"] = np.array(param.to_local().shape)
+    mine = axis_slice(mesh, EXPERT_AXIS, MOE_EXPERTS)
+
+    def expert_fn(ep, h):
+        return (torch.sigmoid(h @ ep["wg"]) * (h @ ep["wu"])) @ ep["wo"]
+
+    layer = make_expert_parallel_layer(mesh, expert_fn)
+    arrays["custom_y"] = layer({"router": x["router"],
+                                "experts": {k: x[k][mine] for k in ("wg", "wu", "wo")}},
+                               x["gh"][rows]).numpy()
+    np.savez(out_dir / f"ep_rank{rank}.npz", **arrays)
