@@ -46,7 +46,12 @@ tensor-parallel train step, K2/K3; the sequence-parallel OPNet and
 transformer_lstm forwards and IoU, K4; the pipeline's forward, K4, and train
 step, K2/K3, as one stage of OPNet's four stage functions over 4
 microbatches; the expert-parallel MoE head against the dense one), runs
-`dryrun_multichip(1, device="cuda")` in that group, times every kernel beside its
+`dryrun_multichip(1, device="cuda")` in that group, drives the six experiment
+drivers of `objectpermanence_tpu_torch/experiments/` through their main()s on
+simulated splits (`containment_run` datagen, train on K2/K3/K4, analyze on K1
+held against the plain forward; `variant_sweep` on K1-K4, `cater_grid_run` on
+K1 and K4, `make_unbsub` on the host, `unbiased_eval` on K1, `moe_balance` on
+K4), times every kernel beside its
 bound, its plain version and a library yardstick where there is one, and
 prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -3522,6 +3527,160 @@ def phase_model_parallel(device, smi):
     return {tag: sum(part[tag] for part in parts) for tag in parts[0]}
 
 
+# the experiment drivers (objectpermanence_tpu_torch/experiments/) at a small scale:
+# simulated splits of 300-frame scenes with 8 objects, the shipped OPNet 256/512
+# (and baseline_lstm, opnet_moe at their shipped widths), the reference recipe
+# cut from 160 epochs to 2 (the sweep's to 1); the unbiased split's uniform planner
+EXP_SPLITS = {"train": 32, "dev": 8, "test": 8}
+EXP_EPOCHS, EXP_SWEEP_EPOCHS, EXP_UNBIASED_VIDEOS = 2, 1, 8
+EXP_SWEEP = ("opnet", "baseline_lstm", "opnet_moe")
+EXP_UNBSUB = {"train": 16, "dev": 4}
+SWEEP_KEYS = {"model", "best_dev_miou", "test_overall_iou", "test_contained_iou",
+              "test_visible_iou", "test_map_0.5", "train_seconds"}
+UNBIASED_KEYS = {"model", "overall_iou", "contained_iou", "contained_ratio", "visible_iou",
+                 "map_0.5"}
+
+
+def phase_experiments(device):
+    """The six reasoning-side experiment drivers through their main()s, as
+    `python -m objectpermanence_tpu_torch.experiments.<name>` runs them, with
+    every launch count read around each: `containment_run` datagen (host),
+    train (K2/K3, K4 in eval) and analyze (K1 only; its predictions held
+    within a pixel of the plain forward on the trained weights);
+    `variant_sweep` over opnet, baseline_lstm and opnet_moe (training K2/K3/K4,
+    opnet's inference K1, the others' K4); `cater_grid_run` for opnet (K1
+    only) and for the other two (K4 only; transformer_lstm, never trained
+    here, is skipped); `make_unbsub` over the root (host); `unbiased_eval` of
+    the sweep's opnet on a uniform-planner split (K1 only); `moe_balance` of
+    the sweep's opnet_moe (K4 only: no gradient). Checks each written file's
+    shape; returns the launches by kernel, summed over the drivers."""
+    from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.experiments import (
+        cater_grid_run, containment_run, make_unbsub, moe_balance, unbiased_eval, variant_sweep,
+    )
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+    from objectpermanence_tpu_torch.ops.opnet_fused import opnet_forward_reference
+    from objectpermanence_tpu_torch.utils.checkpoint import best_params_checkpoint, load_params
+
+    work = WORK_DIR / "experiments"
+    shutil.rmtree(work, ignore_errors=True)
+    root, unbsub, unbiased = work / "sim", work / "unbsub", work / "unbiased"
+    seconds, counts = {}, {}
+    phase_start = time.perf_counter()
+
+    def drive(stage, main, argv):
+        read = reset_launches()
+        t0 = time.perf_counter()
+        main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        seconds[stage] = round(time.perf_counter() - t0, 3)
+        counts[stage] = read()
+        return counts[stage]
+
+    def only(launches, *tags):
+        """Launches of `tags` and of no other kernel."""
+        return all(launches[t] > 0 for t in tags) and \
+            sum(launches.values()) == sum(launches[t] for t in tags)
+
+    got = drive("datagen", containment_run.main, [
+        "datagen", "--root", root, "--train-videos", EXP_SPLITS["train"],
+        "--dev-videos", EXP_SPLITS["dev"], "--test-videos", EXP_SPLITS["test"],
+        "--frames", FRAMES, "--objects", 8])
+    assert sum(got.values()) == 0, f"datagen launched kernels: {got}"
+    for split, videos in EXP_SPLITS.items():
+        assert len(list((root / split / "od_perception").glob("*.pkl"))) == videos, split
+
+    got = drive("train", containment_run.main, ["train", "--root", root, "--epochs", EXP_EPOCHS])
+    assert only(got, "K2", "K3", "K4"), f"training: {got}"
+    epochs = [json.loads(line) for line in (root / "metrics.jsonl").read_text().splitlines()]
+    assert [e["epoch"] for e in epochs] == list(range(1, EXP_EPOCHS + 1)), epochs
+    assert all(np.isfinite(e[s]["loss"]) for e in epochs for s in ("train", "dev")), epochs
+
+    got = drive("analyze", containment_run.main, ["analyze", "--root", root])
+    assert only(got, "K1"), f"analyze: {got}"
+    lines = (root / "analysis.csv").read_text().splitlines()
+    header = lines[0].split(",")
+    rows = [dict(zip(header, line.split(","))) for line in lines[1:]]
+    assert len(rows) == EXP_SPLITS["test"], f"{len(rows)} rows"
+    for column in ("overall_iou", "overall_map_0.5", "overall_map_0.9", "contained_mean_iou",
+                   "full_occlusion_mean_iou", "visibility_gt_0_mean_map_0.9"):
+        assert column in header, f"no {column} column"
+    assert all(0.0 <= float(r["overall_iou"]) <= 1.0 for r in rows), "IoU out of [0, 1]"
+    # analyze's predictions against the plain forward on the trained weights
+    test = root / "test"
+    dataset = ingest_directory(test / "od_perception", test / "labels", 6)
+    predicted = np.stack([np.array(json.loads((root / "results" / f"{n}_bb.json").read_text()))
+                          for n in dataset.names])
+    state = load_params(best_params_checkpoint(root / "checkpoints" / "opnet"))
+    trained = [state[k].to(device) for k in ("att_lstm.w_ih", "att_lstm.w_hh", "att_head.w",
+                                             "video_lstm.w_ih", "video_lstm.w_hh",
+                                             "box_head.w")]
+    want_y, _ = opnet_forward_reference(torch.from_numpy(dataset.boxes).to(device), *trained)
+    px_max, px_share = pixel_diff(torch.from_numpy(predicted), denormalize_boxes(want_y).cpu())
+    assert predicted.shape == (EXP_SPLITS["test"], FRAMES, 4)
+    assert px_max <= PX_MAX and px_share <= PX_SHARE, "analyze disagrees with plain"
+
+    got = drive("variant_sweep", variant_sweep.main, [
+        "--root", root, "--epochs", EXP_SWEEP_EPOCHS, "--models", *EXP_SWEEP])
+    assert only(got, "K1", "K2", "K3", "K4"), f"variant_sweep: {got}"
+    sweep_rows = json.loads((root / "sweep" / "results.json").read_text())
+    assert [r["model"] for r in sweep_rows] == list(EXP_SWEEP), sweep_rows
+    for r in sweep_rows:
+        assert set(r) == SWEEP_KEYS, r
+        assert all(0.0 <= r[k] <= 1.0 for k in SWEEP_KEYS - {"model", "train_seconds"}), r
+
+    got = drive("cater_grid_run_opnet", cater_grid_run.main,
+                ["--root", root, "--models", "opnet"])
+    assert only(got, "K1"), f"cater_grid_run opnet: {got}"
+    got = drive("cater_grid_run_others", cater_grid_run.main,
+                ["--root", root, "--models", "baseline_lstm", "opnet_moe", "transformer_lstm"])
+    assert only(got, "K4"), f"cater_grid_run baseline_lstm, opnet_moe: {got}"
+    grid_rows = json.loads((root / "cater" / "grid_results.json").read_text())
+    assert [r["model"] for r in grid_rows] == list(EXP_SWEEP), grid_rows
+    for r in grid_rows:
+        assert set(r) == {"model", "videos", "grid_top1_acc", "grid_l1_dist"}, r
+        assert r["videos"] == EXP_SPLITS["test"] and 0.0 <= r["grid_top1_acc"] <= 1.0, r
+        assert 0.0 <= r["grid_l1_dist"] <= 10.0, r
+
+    got = drive("make_unbsub", make_unbsub.main, [
+        "--src", root, "--out", unbsub, "--train", EXP_UNBSUB["train"],
+        "--dev", EXP_UNBSUB["dev"]])
+    assert sum(got.values()) == 0, f"make_unbsub launched kernels: {got}"
+    for split, videos in EXP_UNBSUB.items():
+        for kind, pattern in (("scenes", "*.json"), ("labels", "*_bb.json")):
+            links = sorted((unbsub / split / kind).glob(pattern))
+            assert len(links) == videos and all(p.is_symlink() for p in links), (split, kind)
+            assert all(p.resolve().parent == (root / split / kind).resolve() for p in links)
+        assert (unbsub / split / "od_perception").is_symlink()
+        assert (unbsub / split / "annotations" / "containment_annotations.txt").is_file()
+    assert (unbsub / "test").resolve() == (root / "test").resolve()
+
+    got = drive("unbiased_eval", unbiased_eval.main, [
+        "--root", unbiased, "--videos", EXP_UNBIASED_VIDEOS, "--frames", FRAMES,
+        "--checkpoints-root", root, "--models", "opnet"])
+    assert only(got, "K1"), f"unbiased_eval: {got}"
+    unbiased_rows = json.loads((unbiased / "results.json").read_text())
+    assert len(unbiased_rows) == 1 and set(unbiased_rows[0]) == UNBIASED_KEYS, unbiased_rows
+
+    got = drive("moe_balance", moe_balance.main, ["--root", root, "--sweep-dir", "sweep"])
+    assert only(got, "K4"), f"moe_balance: {got}"
+    balance = json.loads((root / "sweep" / "moe_balance.json").read_text())
+    assert balance["videos"] == EXP_SPLITS["test"] and len(balance["expert_fraction"]) == 4
+    assert abs(sum(balance["expert_fraction"]) - 1.0) <= 1e-3, balance
+    assert 0.25 <= balance["mean_gate_prob"] <= 1.0, balance
+
+    total = {tag: sum(c[tag] for c in counts.values()) for tag in counts["train"]}
+    log("experiments", seconds=f"{time.perf_counter() - phase_start:.3f}",
+        stage_seconds=json.dumps(seconds), launches=json.dumps(total),
+        launches_by_stage=json.dumps({s: {k: v for k, v in c.items() if v}
+                                      for s, c in counts.items()}),
+        train_dev_miou=epochs[-1]["dev"]["mean_iou"], analyze_px_max_diff_vs_plain=px_max,
+        analyze_px_diff_share=px_share, sweep=json.dumps(sweep_rows),
+        grid=json.dumps(grid_rows), unbiased=json.dumps(unbiased_rows),
+        moe_balance=json.dumps(balance))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3568,10 +3727,11 @@ def main() -> int:
     phase_detect_800_profile(det800_bf16, det800_detector(device, "float32"))
     dp_launches = phase_dp_train_path(phase_native_ingest(), device, train_set)
     mp_launches = phase_model_parallel(device, smi)
-    kernels = [phase_times(weights, device, launches, max_abs_err),
+    exp_launches = phase_experiments(device)
+    kernels = [phase_times(weights, device, launches + exp_launches["K1"], max_abs_err),
                phase_times(weights, device, k1_bf16_launches, k1_bf16_error, torch.bfloat16)]
     lstm_launches = {tag: train_launches[tag] + models_launches[tag] + dp_launches[tag]
-                     + mp_launches[tag] for tag in ("K2", "K3", "K4")}
+                     + mp_launches[tag] + exp_launches[tag] for tag in ("K2", "K3", "K4")}
     kernels += phase_lstm_times(weights, device, lstm_launches, lstm_errors)
     roi_launches = {**preprocess_launches, "K7": preprocess_launches["K7"] + dp_launches["K7"]}
     kernels += phase_roi_times(roi_inputs, roi_launches, roi_errors)

@@ -278,6 +278,22 @@ class IngestedDataset:
         return self.boxes.shape[-1]
 
 
+def training_mask_file(spec, split_dir) -> Path:
+    """The dataset 'mask' doubles as the TRAINING loss mask: `*_no_labels`
+    models multiply the L1 loss by a VISIBLE-frames mask ("mask contains
+    only visible objects", reference `baselines/training_main.py:199-201`),
+    i.e. those experiments feed a visible-frames annotations file where the
+    standard models feed the containment file (used only for the
+    contained-mIoU eval metric). Feeding the containment file to a
+    no_labels model supervises exactly the frames where the snitch is
+    hidden — backwards — and collapses training (observed: dev mIoU 0.06).
+    Shared by every training driver so the selection can never diverge."""
+    split_dir = Path(split_dir)
+    if spec.no_labels:
+        return split_dir / "od_perception" / "visibility_rate_gt_0.99.txt"
+    return split_dir / "annotations" / "containment_annotations.txt"
+
+
 def ingest_directory(predictions_dir, labels_dir, feature_width: int,
                      containment_file=None, cache_dir=None,
                      native: Optional[bool] = None) -> IngestedDataset:

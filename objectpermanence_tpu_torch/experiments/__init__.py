@@ -1,0 +1,12 @@
+"""The reasoning-side experiment drivers, the counterparts of the JAX
+package's `scripts/containment_run.py`, `variant_sweep.py`,
+`cater_grid_run.py`, `unbiased_eval.py`, `make_unbsub.py` and
+`moe_balance.py`, one module each under the same name:
+
+    python -m objectpermanence_tpu_torch.experiments.<name> --help
+
+Each keeps its script's flags, stage functions and file layout, so a
+dataset root that either package generated serves both. Training and
+inference run on the CUDA card; `--device cpu` runs them on the CPU.
+Importing a driver does no work that needs data.
+"""

@@ -376,3 +376,76 @@ def test_trackers_run_without_jax_or_cv2(tmp_path):
         print("ok")
     """, tmp_path)
     assert out.strip().endswith("ok")
+
+
+EXPERIMENTS = ("containment_run", "variant_sweep", "cater_grid_run", "unbiased_eval",
+               "make_unbsub", "moe_balance")
+
+
+def test_experiment_drivers_help_without_jax(tmp_path):
+    """Each driver of `experiments/` runs as a module (`-m`, through its
+    `__main__` guard) with `--help`, and lists every flag of its JAX script,
+    `--cpu` as `--device`."""
+    import re
+    flags = {}
+    for name in EXPERIMENTS:
+        source = (REPO / "scripts" / f"{name}.py").read_text()
+        flags[name] = sorted({"--device" if f == "--cpu" else f
+                              for f in re.findall(r'add_argument\(\s*"(--[a-z-]+)"', source)})
+    out = _run(f"""
+        import contextlib, io, runpy
+        flags = {flags!r}
+        for name, want in flags.items():
+            sys.argv = [name, "--help"]
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                try:
+                    runpy.run_module(f"objectpermanence_tpu_torch.experiments.{{name}}",
+                                     run_name="__main__")
+                except SystemExit as exc:
+                    assert exc.code == 0, (name, exc.code)
+            missing = [f for f in want if f not in text.getvalue()]
+            assert not missing, (name, missing)
+        leaked = sorted(m for m in sys.modules
+                        if m == "objectpermanence_tpu" or m.startswith("objectpermanence_tpu."))
+        assert not leaked, leaked
+        assert sys.modules["jax"] is None
+        print("ok", len(flags))
+    """, tmp_path)
+    assert out.split()[-2:] == ["ok", str(len(EXPERIMENTS))]
+    assert all(len(f) >= 4 for f in flags.values())
+    assert "--device" in flags["cater_grid_run"] and "--device" in flags["moe_balance"]
+
+
+def test_containment_run_analyze_raises_without_a_card(tmp_path):
+    """`containment_run analyze` on a root it could analyze on the CPU:
+    without `--device cpu` it raises before writing anything; with it, the
+    CSV is written."""
+    out = _run("""
+        from pathlib import Path
+        import torch
+        assert not torch.cuda.is_available()
+        from objectpermanence_tpu_torch.config import load_model_config
+        from objectpermanence_tpu_torch.experiments import containment_run
+        from objectpermanence_tpu_torch.models.registry import init_model
+        from objectpermanence_tpu_torch.utils.checkpoint import save_params
+        containment_run.main(["datagen", "--root", "r", "--train-videos", "1",
+                              "--dev-videos", "1", "--test-videos", "2", "--frames", "30"])
+        _, model = init_model("opnet", load_model_config("opnet"), device="cpu")
+        save_params("r/checkpoints/opnet/01-01-26_0.1.npz", model.state_dict())
+        for stage in ("analyze", "train", "all"):
+            try:
+                containment_run.main([stage, "--root", "r"])
+            except RuntimeError as exc:
+                assert "no CUDA device" in str(exc), exc
+            else:
+                raise AssertionError(f"{stage} ran without a card")
+        assert not Path("r/results").exists() and not Path("r/analysis.csv").exists()
+        assert not Path("r/metrics.jsonl").exists()
+        containment_run.main(["analyze", "--root", "r", "--device", "cpu"])
+        assert len(list(Path("r/results").glob("*_bb.json"))) == 2
+        assert Path("r/analysis.csv").read_text().startswith("videos_names,overall_iou,")
+        assert sys.modules["jax"] is None
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")
