@@ -51,7 +51,14 @@ drivers of `objectpermanence_tpu_torch/experiments/` through their main()s on
 simulated splits (`containment_run` datagen, train on K2/K3/K4, analyze on K1
 held against the plain forward; `variant_sweep` on K1-K4, `cater_grid_run` on
 K1 and K4, `make_unbsub` on the host, `unbiased_eval` on K1, `moe_balance` on
-K4), times every kernel beside its
+K4), drives the six perception and tracker drivers the same way on rendered
+simulated splits (`two_stage_run` render, dettrain on K7/K8, preprocess on
+K7, opnet on K2/K3/K4, analyze on K1 held against the plain forward;
+`detector_800px_run` steptime on K7/K8/K9, train800 in bf16 on K9/K8 bf16,
+native on K7/K8, contract on none; `detector_infer800` on K9 and K9 bf16;
+`detector_transfer_demo` on K7/K8 and, with `--bf16`, their bf16 modes;
+`tracker_benchmark` and `siam_run` on SiamRPN's library convolutions, none
+of the port's kernels), times every kernel beside its
 bound, its plain version and a library yardstick where there is one, and
 prints as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -212,8 +219,11 @@ def device_kernel_ms(prof):
     return kernels
 
 
-def reset_launches():
-    """Every kernel wrapper's launch count to 0; returns a reader of them."""
+def reset_launches(by_dtype=False):
+    """Every kernel wrapper's launch count to 0; returns a reader of them.
+    With `by_dtype`, K7, K8 and K9 read their float32 launches and
+    "K7_bf16", "K8_bf16", "K9_bf16" their bfloat16 ones, as the wrappers
+    count them."""
     from objectpermanence_tpu_torch.ops.lstm_scan import (
         lstm_scan_backward, lstm_scan_forward, lstm_scan_hs,
     )
@@ -228,7 +238,16 @@ def reset_launches():
                 "K9": roi_align_windowed}
     for fn in wrappers.values():
         fn.launches = 0
-    return lambda: {tag: fn.launches for tag, fn in wrappers.items()}
+        fn.launches_bf16 = 0
+
+    def read():
+        counts = {tag: fn.launches for tag, fn in wrappers.items()}
+        if by_dtype:
+            for tag in ("K7", "K8", "K9"):
+                counts[f"{tag}_bf16"] = wrappers[tag].launches_bf16
+                counts[tag] -= wrappers[tag].launches_bf16
+        return counts
+    return read
 
 
 def phase_build():
@@ -1341,7 +1360,10 @@ def phase_preprocess_path(device):
     """`python -m objectpermanence_tpu_torch preprocess` at the shipped config
     on fixture videos, with the launch counts read around it; one video again
     with the plain RoIAlign swapped in, as the comparison; then the pickles
-    through OPNet `inference` from the flagship weights."""
+    through OPNet `inference` from the flagship weights. The fixture frames
+    stand in for the decoder only while preprocess runs."""
+    from unittest import mock
+
     import objectpermanence_tpu_torch.models.detector.detector as det_module
     from objectpermanence_tpu_torch.__main__ import main as cli_main
     from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
@@ -1361,15 +1383,15 @@ def phase_preprocess_path(device):
               "device": "cuda"}
     (work / "preprocess.json").write_text(json.dumps(config))
     results = work / "results"
-    preprocess.read_video_frames = fixture_video
 
-    read = reset_launches()
-    t0 = time.perf_counter()
-    rc = cli_main(["preprocess", "--results_dir", str(results),
-                   "--config", str(work / "preprocess.json")])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read()
+    with mock.patch.object(preprocess, "read_video_frames", fixture_video):
+        read = reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["preprocess", "--results_dir", str(results),
+                       "--config", str(work / "preprocess.json")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read()
     assert rc == 0, f"preprocess CLI exit {rc}"
     data = read_pickles(results)
     assert sorted(data) == names, f"videos written: {sorted(data)} of {names}"
@@ -1388,13 +1410,10 @@ def phase_preprocess_path(device):
 
     # the same first video with the plain RoIAlign in the kernel's place
     (work / "sample.txt").write_text(f"{names[0]}\n")
-    kernel_fn = det_module.roi_align_batched
-    det_module.roi_align_batched = roi_align_batched_reference
-    try:
+    with mock.patch.object(preprocess, "read_video_frames", fixture_video), \
+            mock.patch.object(det_module, "roi_align_batched", roi_align_batched_reference):
         preprocess.preprocess_main(str(work / "plain"),
                                    {**config, "sample_file": str(work / "sample.txt")})
-    finally:
-        det_module.roi_align_batched = kernel_fn
     plain = read_pickles(work / "plain")[names[0]]
     ours = data[names[0]]
     flipped, box_diff = 0, 0.0
@@ -1537,10 +1556,11 @@ def det800_frames(count=DET800_BATCH):
 
 
 def phase_roi_align_windowed_vs_plain(det_bf16):
-    """K9 (float32 and bfloat16) and K7's bfloat16 mode against their plain
+    """K9 and K7 (each in float32 and bfloat16) against their plain
     versions on the inputs of one 800 px bf16 chunk (B=8 frames, N=300
-    proposals, C=256, P2-P5 of 200 x 272 to 25 x 34; K9 f32 reads the same
-    pyramid as float32), with EDGE_ROIS_800 over image 0's first rois, and
+    proposals, C=256, P2-P5 of 200 x 272 to 25 x 34; the f32 cases read the
+    same pyramid as float32: `detector_800px_run steptime`'s exact row runs
+    K7 f32 at 800 px), with EDGE_ROIS_800 over image 0's first rois, and
     ragged (B=3, N=57). Limit 1e-4 x max(1, max |ref|). The count of
     out-of-contract rois K9 adds on the device equals the plain mask's, and
     is at least OUT_OF_CONTRACT_MIN."""
@@ -1555,7 +1575,8 @@ def phase_roi_align_windowed_vs_plain(det_bf16):
     feats32 = [f.float() for f in feats16]
     cases = {"K9_f32": (roi_align_windowed, roi_align_windowed_reference, feats32),
              "K9_bf16": (roi_align_windowed, roi_align_windowed_reference, feats16),
-             "K7_bf16_800": (roi_align_batched, roi_align_batched_reference, feats16)}
+             "K7_bf16_800": (roi_align_batched, roi_align_batched_reference, feats16),
+             "K7_f32_800": (roi_align_batched, roi_align_batched_reference, feats32)}
     shapes = [(h, w, s) for (h, w), s in zip([tuple(f.shape[-2:]) for f in feats16],
                                              ROI_STRIDES)]
     errors = {}
@@ -1629,6 +1650,46 @@ def phase_roi_align_bf16_vs_plain(device):
     return worst, (feats, rois, levels)
 
 
+def phase_roi_align_bf16_grad_native_vs_plain(inputs):
+    """K8 with bf16 dF on the native-geometry bf16 pyramid
+    (`detector_transfer_demo --bf16` trains there; the 800 px shape is
+    `phase_roi_align_bf16_grad_vs_plain`'s): `phase_roi_align_bf16_vs_plain`'s
+    inputs (B=8, N=300, C=256, P2-P5 of 64 x 80 to 8 x 10, EDGE_ROIS over
+    image 0) with a seeded normal dOut, and ragged (B=3, N=57), against the
+    plain backward rounded to bf16: within one bf16 ulp of max |ref| per
+    level, as there; its float32 accumulators within 1e-4 x max(1, max |ref|)."""
+    from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
+    from objectpermanence_tpu_torch.ops.roi_align_kernel import (
+        roi_align_batched_backward, roi_align_batched_backward_reference,
+    )
+    feats, rois, levels = inputs
+    shapes = [tuple(f.shape[-2:]) for f in feats]
+    gen = torch.Generator().manual_seed(9)
+    dout = torch.randn((*rois.shape[:2], feats[0].shape[1], 7, 7),
+                       generator=gen).to(rois.device)
+    worst = 0.0
+    for batch, n in ((rois.shape[0], rois.shape[1]), (3, 57)):
+        args = (dout[:batch, :n].contiguous(), rois[:batch, :n].contiguous(),
+                levels[:batch, :n].contiguous(), shapes, ROI_STRIDES)
+        accumulators = roi_align_batched_backward(*args)
+        rounded = roi_align_batched_backward(*args, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        want = roi_align_batched_backward_reference(*args)
+        errs, limits = zip(*[roi_err(g, w) for g, w in zip(accumulators, want)])
+        ulps = [bf16_ulp(max(w.abs().max().item(), 1e-30)) for w in want]
+        assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in rounded)
+        bf16_errs = [(g.float() - w.to(torch.bfloat16).float()).abs().max().item()
+                     for g, w in zip(rounded, want)]
+        log("roi_align_bf16_grad_native_vs_plain", kernel="K8_bf16", batch=batch, rois=n,
+            shapes=shapes, accumulators_max_abs_err_per_level=list(errs),
+            accumulators_limit_per_level=list(limits), bf16_max_abs_err_per_level=bf16_errs,
+            bf16_limit_per_level=ulps, levels_used=sorted(set(args[2].flatten().tolist())))
+        assert all(e <= lim for e, lim in zip(errs, limits)), f"K8 disagrees at B={batch}, N={n}"
+        assert all(e <= u for e, u in zip(bf16_errs, ulps)), (batch, n, bf16_errs, ulps)
+        worst = max(worst, max(bf16_errs))
+    return worst
+
+
 def phase_preprocess_800_path(device):
     """`python -m objectpermanence_tpu_torch preprocess` at the 800 px bf16
     recipe (no geometry in the config: the 800 px defaults) on one 300-frame
@@ -1638,7 +1699,10 @@ def phase_preprocess_800_path(device):
     one chunk each of the fp32 twin and of
     `CaterDetector(DetectorConfig())` (frozen BN, RPN 1000/1000, "auto"):
     K9 once, K7 never; and one chunk of the shipped native-geometry config
-    in bf16: K7's bf16 mode once."""
+    in bf16: K7's bf16 mode once. The fixture frames stand in for the
+    decoder only while preprocess runs."""
+    from unittest import mock
+
     import objectpermanence_tpu_torch.models.detector.detector as det_module
     from objectpermanence_tpu_torch.__main__ import main as cli_main
     from objectpermanence_tpu_torch.infer import preprocess
@@ -1654,15 +1718,17 @@ def phase_preprocess_800_path(device):
     config = {**DET800, "compute_dtype": "bfloat16", "batch_size": DET800_BATCH,
               "videos_dir": str(videos), "device": "cuda"}
     (work / "preprocess.json").write_text(json.dumps(config))
-    preprocess.read_video_frames = lambda path: fixture_video(path, seed=DET800_SEED)
+    decoder = mock.patch.object(preprocess, "read_video_frames",
+                                lambda path: fixture_video(path, seed=DET800_SEED))
 
-    read = reset_launches()
-    t0 = time.perf_counter()
-    rc = cli_main(["preprocess", "--results_dir", str(work / "results"),
-                   "--config", str(work / "preprocess.json")])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read()
+    with decoder:
+        read = reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["preprocess", "--results_dir", str(work / "results"),
+                       "--config", str(work / "preprocess.json")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read()
     assert rc == 0, f"preprocess CLI exit {rc}"
     chunks = -(-FRAMES // DET800_BATCH)
     assert launches["K9"] == chunks, f"K9 launches {launches}"
@@ -1676,13 +1742,10 @@ def phase_preprocess_800_path(device):
     det_bf16 = det800_detector(device, "bfloat16")
     frames = det800_frames()
     ours_chunk = det_bf16(frames)
-    kernel_fn = det_module.roi_align_windowed
-    det_module.roi_align_windowed = roi_align_windowed_reference
-    try:
+    with decoder, mock.patch.object(det_module, "roi_align_windowed",
+                                    roi_align_windowed_reference):
         preprocess.preprocess_main(str(work / "plain"), config)
         plain_chunk = det_bf16(frames)
-    finally:
-        det_module.roi_align_windowed = kernel_fn
     valid, plain_valid = ours_chunk[3], plain_chunk[3]
     assert valid.sum() > 0 and np.array_equal(valid, plain_valid), "valid detections differ"
     assert np.array_equal(ours_chunk[1][valid], plain_chunk[1][valid]), "labels differ"
@@ -3681,6 +3744,253 @@ def phase_experiments(device):
     return total
 
 
+# the perception and tracker experiment drivers (objectpermanence_tpu_torch/
+# experiments/) on the card at full width and small depth: simulated splits of
+# 300-frame scenes (4 objects), rendered; the two-stage detector at the dettrain
+# recipe (GroupNorm ResNet-50 FPN 256, 240 x 320, RPN 500/300, batch 8) 1 epoch, its
+# `preprocess` over every video, OPNet 256/512 on the real detections 2 epochs; the
+# 800 px recipe (800 x 1088 padded, windowed) in steptime (3 steps a row), train800
+# in bf16 and native for 1 epoch, contract, and two infer800 configs (one fp32, one
+# bf16); the transfer demo at its own sizes (24 + 8 + 4 60-frame videos) for 1 + 1
+# epochs, fp32 and bf16; SiamRPN at its shipped width on the two-stage train
+# videos' pairs (batch 8, 2 epochs: its schedule warms up over the first epoch),
+# then OPE on 2 test videos; tracker_benchmark on 2 fresh 300-frame fixture videos.
+# Cut from the JAX runs' 3,200 / 1,600 training videos and 12-16 detector epochs.
+PERC_SPLITS = {"train": 6, "dev": 2, "test": 4}
+PERC_DET_SAMPLES, PERC_STEPS, PERC_OPNET_EPOCHS = 4, 3, 2
+PERC_SIAM = {"pairs": 24, "holdout": 8, "batch": 8, "epochs": 2}
+PERC_TRACKER_VIDEOS = 2
+DET_REPORT_KEYS = {"best_dev_map", "test", "history", "checkpoint"}
+DET800_REPORT_KEYS = {"geometry", "epochs", "batch", "compute_dtype", "best_dev_map", "test",
+                      "train_seconds", "train_contract", "eval_contract", "history",
+                      "checkpoint"}
+MAP_KEYS = {"mAP", "AP50", "AP75"}
+OPE_KEYS = {"success_auc", "precision_20px", "mean_iou"}
+
+
+def phase_perception_experiments(device):
+    """The six perception and tracker experiment drivers through their
+    main()s, as `python -m objectpermanence_tpu_torch.experiments.<name>`
+    runs them, with every launch count read around each stage: the
+    `two_stage_run` chain (render on the host; dettrain K7 + K8; preprocess
+    K7 only; opnet K2/K3/K4; analyze K1 only, its boxes held within a pixel
+    of the plain forward on the trained weights); `detector_800px_run`
+    (render on the host; steptime K9 + K7 + K8, the windowed row's K9 and
+    the exact rows' K7; train800 in bf16 K9 bf16 + K8 bf16; native K7 + K8;
+    contract nothing); `detector_infer800` fp32_windowed (K9) and
+    bf16_windowed (K9 bf16); `detector_transfer_demo` (K7 + K8, and with
+    `--bf16` K7 bf16 + K8 bf16); `tracker_benchmark` and `siam_run`
+    (SiamRPN's library convolutions: nothing). The bf16 launches are the
+    wrappers' own count of them, so each stage is held to its dtype too.
+    `siam_run train` holds out PERC_SIAM["holdout"] of its few pairs (the
+    driver's fixed 256 needs 64 videos' pairs). Checks each written file's
+    schema; returns the launches by kernel and dtype."""
+    import functools
+    import pickle
+    from unittest import mock
+
+    from objectpermanence_tpu_torch.data.ingest import ingest_directory
+    from objectpermanence_tpu_torch.experiments import (
+        containment_run, detector_800px_run, detector_infer800, detector_transfer_demo, siam_run,
+        tracker_benchmark, two_stage_run,
+    )
+    from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
+    from objectpermanence_tpu_torch.ops.opnet_fused import opnet_forward_reference
+    from objectpermanence_tpu_torch.utils.checkpoint import best_params_checkpoint, load_params
+
+    work = WORK_DIR / "perception"
+    shutil.rmtree(work, ignore_errors=True)
+    src, ts, det, transfer = work / "src", work / "twostage", work / "det800", work / "transfer"
+    seconds, counts = {}, {}
+    phase_start = time.perf_counter()
+
+    def drive(stage, main, argv):
+        read = reset_launches(by_dtype=True)
+        t0 = time.perf_counter()
+        main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        seconds[stage] = round(time.perf_counter() - t0, 3)
+        counts[stage] = read()
+        return counts[stage]
+
+    def only(launches, *tags):
+        """Launches of `tags` and of no other kernel."""
+        return all(launches[t] > 0 for t in tags) and \
+            sum(launches.values()) == sum(launches[t] for t in tags)
+
+    def none(stage, launches):
+        assert sum(launches.values()) == 0, f"{stage} launched kernels: {launches}"
+
+    def report(path, keys):
+        data = json.loads(path.read_text())
+        assert keys <= set(data), (path, sorted(data))
+        return data
+
+    none("datagen", drive("datagen", containment_run.main, [
+        "datagen", "--root", src, "--train-videos", PERC_SPLITS["train"],
+        "--dev-videos", PERC_SPLITS["dev"], "--test-videos", PERC_SPLITS["test"],
+        "--frames", FRAMES, "--objects", 4]))
+
+    # two_stage_run
+    stage = ["--root", ts, "--src", src]
+    none("ts_render", drive("ts_render", two_stage_run.main,
+                            ["render", *stage, "--det-samples", PERC_DET_SAMPLES]))
+    for split, videos in PERC_SPLITS.items():
+        assert len(list((ts / split / "videos").glob("*.avi"))) == videos, split
+        assert len(list((ts / split / "det_images").glob("*.png"))) == videos * PERC_DET_SAMPLES
+    got = drive("ts_dettrain", two_stage_run.main, ["dettrain", *stage, "--det-epochs", 1])
+    assert only(got, "K7", "K8"), f"dettrain: {got}"
+    dettrain = report(ts / "detector" / "report.json", DET_REPORT_KEYS)
+    assert set(dettrain["test"]) == MAP_KEYS and (ts / "detector" / ".done").exists()
+    assert len(dettrain["history"]) == 1 and np.isfinite(dettrain["history"][0]["train_loss"])
+    got = drive("ts_preprocess", two_stage_run.main, ["preprocess", *stage])
+    assert only(got, "K7"), f"preprocess: {got}"
+    assert got["K7"] == sum(PERC_SPLITS.values()) * -(-FRAMES // 32), got
+    stats = json.loads((ts / "perception_stats.json").read_text())
+    for split, videos in PERC_SPLITS.items():
+        assert stats[split]["videos"] == videos, stats
+        for path in (ts / split / "od_real").glob("*.pkl"):
+            with open(path, "rb") as f:
+                data = pickle.load(f)
+            assert len(data["bb"]) == len(data["labels"]) == FRAMES, path
+    got = drive("ts_opnet", two_stage_run.main, ["opnet", *stage, "--epochs", PERC_OPNET_EPOCHS])
+    assert only(got, "K2", "K3", "K4"), f"opnet: {got}"
+    epochs = [json.loads(line) for line in (ts / "metrics.jsonl").read_text().splitlines()]
+    assert [e["epoch"] for e in epochs] == list(range(1, PERC_OPNET_EPOCHS + 1)), epochs
+    assert all(np.isfinite(e[s]["loss"]) for e in epochs for s in ("train", "dev")), epochs
+    meta = json.loads((ts / "train_meta.json").read_text())
+    assert meta["train_videos"] == PERC_SPLITS["train"] and meta["epochs"] == PERC_OPNET_EPOCHS
+    got = drive("ts_analyze", two_stage_run.main, ["analyze", *stage])
+    assert only(got, "K1"), f"analyze: {got}"
+    lines = (ts / "analysis.csv").read_text().splitlines()
+    header = lines[0].split(",")
+    assert len(lines) == 1 + PERC_SPLITS["test"], lines
+    for column in ("overall_iou", "contained_mean_iou", "full_occlusion_mean_iou",
+                   "overall_map_0.5"):
+        assert column in header, f"no {column} column"
+    dataset = ingest_directory(ts / "test" / "od_real", src / "test" / "labels", 6)
+    predicted = np.stack([np.array(json.loads((ts / "results" / f"{n}_bb.json").read_text()))
+                          for n in dataset.names])
+    state = load_params(best_params_checkpoint(ts / "checkpoints" / "opnet"))
+    trained = [state[k].to(device) for k in ("att_lstm.w_ih", "att_lstm.w_hh", "att_head.w",
+                                             "video_lstm.w_ih", "video_lstm.w_hh",
+                                             "box_head.w")]
+    want_y, _ = opnet_forward_reference(torch.from_numpy(dataset.boxes).to(device), *trained)
+    px_max, px_share = pixel_diff(torch.from_numpy(predicted), denormalize_boxes(want_y).cpu())
+    assert predicted.shape == (PERC_SPLITS["test"], FRAMES, 4)
+    assert px_max <= PX_MAX and px_share <= PX_SHARE, "analyze disagrees with plain"
+
+    # detector_800px_run
+    stage = ["--root", det, "--src", src]
+    none("d8_render", drive("d8_render", detector_800px_run.main,
+                            ["render", *stage, "--det-samples", PERC_DET_SAMPLES]))
+    got = drive("d8_steptime", detector_800px_run.main, ["steptime", *stage, "--steps", PERC_STEPS])
+    assert only(got, "K7", "K8", "K9"), f"steptime: {got}"
+    # per step: the windowed row K9 + K8, the gather and native rows K7 + K8
+    assert got["K9"] == got["K7"] // 2 == got["K8"] // 3 == 3 + PERC_STEPS, got
+    steptime = json.loads((det / "steptime.json").read_text())
+    assert list(steptime) == ["800px_windowed", "800px_gather", "native_pallas"], steptime
+    assert [r["roi_path"] for r in steptime.values()] == ["windowed", "exact", "exact"]
+    assert all(r["step_ms"] > 0 for r in steptime.values()), steptime
+    got = drive("d8_train800", detector_800px_run.main,
+                ["train800", *stage, "--epochs", 1, "--compute-dtype", "bfloat16"])
+    assert only(got, "K8_bf16", "K9_bf16"), f"train800: {got}"
+    det800 = report(det / "det800" / "report.json", DET800_REPORT_KEYS)
+    assert det800["compute_dtype"] == "bfloat16" and set(det800["test"]) == MAP_KEYS
+    for key in ("train_contract", "eval_contract"):
+        assert det800[key]["rois"] > 0 and det800[key]["rate"] is not None, det800[key]
+    got = drive("d8_native", detector_800px_run.main, ["native", *stage, "--epochs", 1])
+    assert only(got, "K7", "K8"), f"native: {got}"
+    detnative = report(det / "detnative" / "report.json", DET800_REPORT_KEYS)
+    assert detnative["train_contract"]["rois"] == 0, detnative["train_contract"]
+    none("d8_contract", drive("d8_contract", detector_800px_run.main, ["contract", *stage]))
+    recount = json.loads((det / "det800" / "report.json").read_text())
+    for key in ("train_contract_cuda", "eval_contract_cuda"):
+        assert recount[key]["rois"] > 0 and 0 <= recount[key]["rate"] <= 1, recount[key]
+
+    # detector_infer800, one fp32 and one bf16 config
+    infer_counts = {}
+    for name, kernel in (("fp32_windowed", "K9"), ("bf16_windowed", "K9_bf16")):
+        infer_counts[name] = drive(f"i8_{name}", detector_infer800.main, [
+            "--root", det, "--configs", name, "--iters", PERC_STEPS])
+        assert only(infer_counts[name], kernel), f"infer800 {name}: {infer_counts[name]}"
+    infer800 = json.loads((det / "infer800.json").read_text())
+    assert list(infer800) == ["fp32_windowed", "bf16_windowed"], infer800
+    for row in infer800.values():
+        assert row["fps"] > 0 and set(row["test"]) == MAP_KEYS, row
+
+    # detector_transfer_demo, fp32 then bf16 on the same rendered sets
+    got = drive("transfer", detector_transfer_demo.main, [
+        "--root", transfer, "--pretrain-epochs", 1, "--finetune-epochs", 1])
+    assert only(got, "K7", "K8"), f"transfer: {got}"
+    (work / "transfer_bf16").mkdir()
+    for tag in ("pretrain", "finetune", "finetune_eval"):
+        (work / "transfer_bf16" / tag).symlink_to(transfer / tag)
+    got = drive("transfer_bf16", detector_transfer_demo.main, [
+        "--root", work / "transfer_bf16", "--pretrain-epochs", 1, "--finetune-epochs", 1,
+        "--bf16"])
+    assert only(got, "K7_bf16", "K8_bf16"), f"transfer --bf16: {got}"
+    for root in (transfer, work / "transfer_bf16"):
+        results = json.loads((root / "results.json").read_text())
+        assert set(results) == {"from_pretrained", "from_scratch"}, results
+        assert all(len(r["history"]) == 1 and 0 <= r["best_map"] <= 1
+                   for r in results.values()), results
+        assert (root / "pretrained.pth").is_file()
+
+    # tracker_benchmark and siam_run: SiamRPN is library convolutions
+    bench = work / "trackbench"
+    none("tracker_benchmark", drive("tracker_benchmark", tracker_benchmark.main, [
+        "--root", bench, "--videos", PERC_TRACKER_VIDEOS, "--frames", FRAMES]))
+    siam = work / "siam"
+    argv = ["--root", siam, "--train-src", src / "train", "--train-videos", ts / "train" / "videos",
+            "--bench-src", src / "test", "--bench-videos", ts / "test" / "videos",
+            "--pairs", PERC_SIAM["pairs"], "--batch", PERC_SIAM["batch"],
+            "--epochs", PERC_SIAM["epochs"], "--bench-limit", 2]
+    with mock.patch.object(siam_run, "siam_train_main", functools.partial(
+            siam_run.siam_train_main, holdout=PERC_SIAM["holdout"])):
+        for name in ("data", "train", "bench"):
+            none(f"siam_{name}", drive(f"siam_{name}", siam_run.main, [name, *argv]))
+    with np.load(siam / "pairs.npz") as pairs:
+        assert pairs["z"].shape[1:] == (127, 127, 3), pairs["z"].shape
+        assert PERC_SIAM["holdout"] + PERC_SIAM["batch"] <= len(pairs["gt"]) <= PERC_SIAM["pairs"]
+    assert (siam / "checkpoint" / "final.npz").is_file()
+    ope = {}
+    for root in (bench, siam / "ope"):
+        rows = json.loads((root / "results.json").read_text())
+        assert set(rows) == {"detector_heuristic", "detector_tracker", "siamrpn_raw"}, rows
+        for row in rows.values():
+            assert OPE_KEYS <= set(row) and all(0 <= row[k] <= 1 for k in OPE_KEYS), row
+        ope[root.parent.name if root.name == "ope" else root.name] = rows
+
+    launches = {
+        "K1": counts["ts_analyze"]["K1"],
+        **{tag: counts["ts_opnet"][tag] for tag in ("K2", "K3", "K4")},
+        "K7": sum(counts[s]["K7"] for s in ("ts_dettrain", "ts_preprocess", "d8_steptime",
+                                            "d8_native", "transfer")),
+        "K8": sum(counts[s]["K8"] for s in ("ts_dettrain", "d8_steptime", "d8_native",
+                                            "transfer")),
+        "K8_bf16": counts["d8_train800"]["K8_bf16"] + counts["transfer_bf16"]["K8_bf16"],
+        "K7_bf16": counts["transfer_bf16"]["K7_bf16"],
+        "K9_f32": counts["d8_steptime"]["K9"] + infer_counts["fp32_windowed"]["K9"],
+        "K9_bf16": counts["d8_train800"]["K9_bf16"] + infer_counts["bf16_windowed"]["K9_bf16"],
+    }
+    log("perception_experiments", seconds=f"{time.perf_counter() - phase_start:.3f}",
+        stage_seconds=json.dumps(seconds), launches=json.dumps(launches),
+        launches_by_stage=json.dumps({s: {k: v for k, v in c.items() if v}
+                                      for s, c in counts.items()}),
+        dettrain_test=json.dumps(dettrain["test"]), perception=json.dumps(stats),
+        opnet_dev_miou=epochs[-1]["dev"]["mean_iou"], analyze_px_max_diff_vs_plain=px_max,
+        analyze_px_diff_share=px_share, steptime=json.dumps(steptime),
+        det800_test=json.dumps(det800["test"]),
+        det800_contract=json.dumps({k: recount[k] for k in (
+            "train_contract", "eval_contract", "train_contract_cuda", "eval_contract_cuda")}),
+        detnative_test=json.dumps(detnative["test"]),
+        infer800=json.dumps({k: {f: v[f] for f in ("fps", "ms_per_batch", "batch", "test")}
+                             for k, v in infer800.items()}),
+        ope=json.dumps(ope))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3707,6 +4017,9 @@ def main() -> int:
     train_set, dev_set = detection_sets(REPO / "build" / "chip_smoke_detection")
     k8_error, k8_inputs = phase_roi_align_grad_vs_plain(dettrain_detector(device), train_set)
     k8_bf16_error, k8_bf16_inputs = phase_roi_align_bf16_grad_vs_plain(device, train_set)
+    k8_bf16_error = max(k8_bf16_error, phase_roi_align_bf16_grad_native_vs_plain(
+        native_bf16_inputs))
+    roi_errors["K7"] = max(roi_errors["K7"], windowed_errors["K7_f32_800"])
     phase_models_vs_plain(device)
     launches = phase_main_path(weights, device)
     phase_analysis_path()
@@ -3746,6 +4059,15 @@ def main() -> int:
         step_ms[label] = phase_detector_train_step_profile(
             device, train_set, recipe=train800_recipe(dtype), batch=TRAIN800_BATCH, label=label)
     log("detector_train_steps", step_ms=json.dumps(step_ms))
+    # the perception drivers, after the kernels' timing windows (host-heavy:
+    # rendering, decoding), their launches added to the kernels line's
+    perception_launches = phase_perception_experiments(device)
+    rows = {row["name"]: row for row in kernels}
+    row_of = {"K1": "opnet_fused_forward", "K8": "roi_align_batched_backward",
+              "K8_bf16": "roi_align_batched_backward (bf16)", "K7": ROI_KERNELS["K7"][0],
+              **{tag: name for tag, (name, _) in {**LSTM_KERNELS, **WINDOWED_KERNELS}.items()}}
+    for tag, launched in perception_launches.items():
+        rows[row_of[tag]]["launches"] += launched
     # the programmed models and SiamRPN, after the kernels' timing windows
     phase_siam_vs_plain(device)
     phase_trackers_path(device)

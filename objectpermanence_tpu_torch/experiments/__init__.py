@@ -1,7 +1,10 @@
-"""The reasoning-side experiment drivers, the counterparts of the JAX
-package's `scripts/containment_run.py`, `variant_sweep.py`,
-`cater_grid_run.py`, `unbiased_eval.py`, `make_unbsub.py` and
-`moe_balance.py`, one module each under the same name:
+"""The experiment drivers, the counterparts of the JAX package's scripts,
+one module each under the same name: on the reasoning side
+`scripts/containment_run.py`, `variant_sweep.py`, `cater_grid_run.py`,
+`unbiased_eval.py`, `make_unbsub.py` and `moe_balance.py`; on the perception
+and tracker side `two_stage_run.py`, `detector_800px_run.py`,
+`detector_infer800.py`, `detector_transfer_demo.py`, `tracker_benchmark.py`
+and `siam_run.py`:
 
     python -m objectpermanence_tpu_torch.experiments.<name> --help
 

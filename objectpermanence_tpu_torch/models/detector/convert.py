@@ -17,6 +17,10 @@ frozen batch-norm as `weight`, `bias`, `running_mean`, `running_var`.
   `rpn.head.conv.0.0.weight`) -> the port's names, without the BN
   `num_batches_tracked` counters; `load_state_dict(strict=True)` then
   catches any other difference in architecture.
+- `export_torchvision_state_dict`: the inverse of `torchvision_state_dict`,
+  the port's detector (or its state_dict) -> torchvision's <=0.5 names as
+  numpy arrays in torch layout, which `torch.save` turns into a `.pth` that
+  `CaterDetector.load` reads back.
 """
 
 import re
@@ -107,6 +111,18 @@ def torchvision_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Ten
             key = pattern.sub(repl, key)
         out[key] = torch.as_tensor(value)
     return out
+
+
+def export_torchvision_state_dict(model_or_state_dict) -> Dict[str, np.ndarray]:
+    """The port's detector (`Detector`, or its state_dict) -> torchvision's
+    <=0.5-named state_dict as numpy arrays in torch layout, the JAX package's
+    `export_torchvision_state_dict` for the port. The port's names are
+    torchvision's, so this copies every tensor to the host; the frozen
+    batch-norm statistics are kept, so that `CaterDetector.load` of the
+    `.pth` that `torch.save` makes of it loads with `strict=True`."""
+    state_dict = (model_or_state_dict.state_dict()
+                  if isinstance(model_or_state_dict, torch.nn.Module) else model_or_state_dict)
+    return {key: value.detach().cpu().numpy().copy() for key, value in state_dict.items()}
 
 
 def load_torch_checkpoint(path) -> Dict[str, torch.Tensor]:

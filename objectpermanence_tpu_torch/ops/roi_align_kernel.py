@@ -28,7 +28,8 @@ Counterparts of `objectpermanence_tpu/ops/pallas_roi_align.py`:
   is the VJP of its gather), under `RoIAlignFunction`. A roi out of the
   window contract so gets a gradient of taps its forward dropped, as in JAX.
 
-Each entry point counts its own launches. On a CUDA tensor it launches the
+Each entry point counts its own launches (`launches`; K7, K8 and K9 count
+those in bfloat16 again in `launches_bf16`). On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it runs the plain version,
 `ops/roi_align.py::multilevel_roi_align` (per image),
 `multilevel_roi_align_backward` and
@@ -375,7 +376,9 @@ def roi_align_batched(features: List[torch.Tensor], rois: torch.Tensor, levels: 
         return roi_align_batched_reference(features, rois, levels, strides, pooled,
                                            sampling_ratio)
     out = _launch(features, rois, levels, strides, pooled, sampling_ratio)
-    roi_align_batched.launches += bool(out.numel())  # an empty output launches nothing
+    launched = bool(out.numel())  # an empty output launches nothing
+    roi_align_batched.launches += launched
+    roi_align_batched.launches_bf16 += launched and features[0].dtype == torch.bfloat16
     return out
 
 
@@ -644,6 +647,7 @@ def roi_align_batched_backward(grad: torch.Tensor, rois: torch.Tensor, levels: t
     if err != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: cudaError {err}")
     roi_align_batched_backward.launches += 1
+    roi_align_batched_backward.launches_bf16 += dtype == torch.bfloat16
     return out
 
 
@@ -723,6 +727,7 @@ def roi_align_windowed(features: List[torch.Tensor], rois: torch.Tensor, levels:
     out = _launch(features, rois, levels, strides, pooled, sampling_ratio, window, counter)
     if out.numel():  # an empty output launches nothing
         roi_align_windowed.launches += 1
+        roi_align_windowed.launches_bf16 += features[0].dtype == torch.bfloat16
         if counting:
             window_lib.count_dispatch(rois.shape[0] * rois.shape[1])
     return out
@@ -749,3 +754,6 @@ roi_align_windowed.launches = 0
 roi_align_single.launches = 0
 roi_align_tiled.launches = 0
 roi_align_batched_backward.launches = 0
+roi_align_batched.launches_bf16 = 0
+roi_align_windowed.launches_bf16 = 0
+roi_align_batched_backward.launches_bf16 = 0

@@ -21,13 +21,9 @@ the same way. Tolerances, with their reasons:
 - `moe_balance`'s fractions and mean gate on the same weights: within 1e-6.
 """
 
-import contextlib
-import dataclasses
-import io
 import json
 import os
 import shutil
-import sys
 
 import jax
 import numpy as np
@@ -49,8 +45,8 @@ from objectpermanence_tpu_torch.experiments import (
     cater_grid_run, containment_run, make_unbsub, moe_balance, unbiased_eval, variant_sweep,
 )
 from objectpermanence_tpu_torch.models.convert import params_from_jax
-from objectpermanence_tpu_torch.models.registry import model_class
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
+from torch_experiment_helpers import files, from_jax_init, jax_main, run_quiet
 
 NARROW = {"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 16,
           "videos_hidden_dim": 24}
@@ -60,57 +56,10 @@ EPOCHS = 2
 SWEPT = ("opnet", "opnet_no_labels")
 
 
-def _files(root):
-    """Every file and link under `root`, not followed: relative path ->
-    its bytes, or ("link", target)."""
-    out = {}
-    for dirpath, dirnames, filenames in os.walk(root):
-        for name in dirnames + filenames:
-            path = os.path.join(dirpath, name)
-            key = os.path.relpath(path, root)
-            if os.path.islink(path):
-                out[key] = ("link", os.readlink(path))
-            elif os.path.isfile(path):
-                with open(path, "rb") as f:
-                    out[key] = f.read()
-    return out
-
-
-def _port_model(name, params, config):
-    model = model_class(name)(config)
-    model.load_state_dict(params_from_jax(jax.device_get(params)))
-    return model
-
-
-def _from_jax_init(get_spec):
-    """The port's `get_model_spec`, its models built from JAX's init
-    (`PRNGKey(0)`, the training seed), as JAX's `training_main` builds them."""
-    def patched(name, config=None):
-        spec = get_spec(name, config)
-        params = jax_get_model_spec(name, config).init(jax.random.PRNGKey(0), config or NARROW)
-        return dataclasses.replace(spec, build=lambda cfg, gen: _port_model(name, params, cfg))
-    return patched
-
-
 def _export(leaf, name, out):
     """A JAX params checkpoint (orbax leaf) as the port's npz."""
     like = jax_get_model_spec(name, NARROW).init(jax.random.PRNGKey(0), NARROW)
     return save_params(out, params_from_jax(jax.device_get(restore_params(leaf, like))))
-
-
-def _run(fn, *args):
-    """`fn(*args)` with its printed lines returned."""
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        fn(*args)
-    return out.getvalue()
-
-
-def _jax_main(module, argv):
-    """A JAX script's `main()`, which reads `sys.argv`."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(sys, "argv", [module.__name__] + argv)
-        return _run(module.main)
 
 
 def _saved(text):
@@ -144,7 +93,7 @@ def narrow():
             for name in ("opnet", "opnet_no_labels", "opnet_moe"):
                 mp.setitem(configs, name, NARROW)
         for module in (containment_run, variant_sweep):
-            mp.setattr(module, "get_model_spec", _from_jax_init(module.get_model_spec))
+            mp.setattr(module, "get_model_spec", from_jax_init(module.get_model_spec, NARROW))
         yield
 
 
@@ -153,8 +102,8 @@ def roots(tmp_path_factory):
     base = tmp_path_factory.mktemp("experiments")
     jax_root, port_root = base / "jax", base / "port"
     for split, scenes, seed in SPLITS:
-        _run(jax_containment_run.gen_split, jax_root, split, scenes, seed, FRAMES, OBJECTS)
-        _run(containment_run.gen_split, port_root, split, scenes, seed, FRAMES, OBJECTS)
+        run_quiet(jax_containment_run.gen_split, jax_root, split, scenes, seed, FRAMES, OBJECTS)
+        run_quiet(containment_run.gen_split, port_root, split, scenes, seed, FRAMES, OBJECTS)
     return jax_root, port_root
 
 
@@ -162,8 +111,8 @@ def roots(tmp_path_factory):
 def trained(roots, narrow):
     """`train` of both: OPNet, the reference recipe, EPOCHS epochs."""
     jax_root, port_root = roots
-    jax_out = _run(jax_containment_run.train, jax_root, EPOCHS, False)
-    port_out = _run(containment_run.train, port_root, EPOCHS, False, "cpu")
+    jax_out = run_quiet(jax_containment_run.train, jax_root, EPOCHS, False)
+    port_out = run_quiet(containment_run.train, port_root, EPOCHS, False, "cpu")
     return jax_out, port_out
 
 
@@ -173,7 +122,7 @@ def swept(roots, narrow):
     records the mask file the port's sweep ingested for each model."""
     jax_root, port_root = roots
     argv = ["--epochs", str(EPOCHS), "--train-limit", "8", "--models", *SWEPT]
-    _jax_main(jax_variant_sweep, ["--root", str(jax_root), *argv])
+    jax_main(jax_variant_sweep, ["--root", str(jax_root), *argv])
     masks = []
     real = variant_sweep.ingest_directory
 
@@ -183,7 +132,7 @@ def swept(roots, narrow):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(variant_sweep, "ingest_directory", spy)
-        _run(variant_sweep.main, ["--root", str(port_root), *argv, "--device", "cpu"])
+        run_quiet(variant_sweep.main, ["--root", str(port_root), *argv, "--device", "cpu"])
     return masks
 
 
@@ -201,7 +150,7 @@ def converted(roots, swept, tmp_path_factory):
 
 def test_gen_split_bytes_equal(roots):
     jax_root, port_root = roots
-    ours, theirs = _files(port_root), _files(jax_root)
+    ours, theirs = files(port_root), files(jax_root)
     assert sorted(ours) == sorted(theirs)
     for split, scenes, _ in SPLITS:
         assert len(list((port_root / split / "od_perception").glob("*.pkl"))) == scenes
@@ -218,11 +167,11 @@ def test_gen_split_pre_v2_marker(module, roots, tmp_path):
     split = tmp_path / "dev"
     shutil.copytree(port_root / "dev", split)
     (split / ".done").write_text("done\n")
-    _run(module.gen_split, tmp_path, "dev", 2, 2, FRAMES, OBJECTS)
+    run_quiet(module.gen_split, tmp_path, "dev", 2, 2, FRAMES, OBJECTS)
     assert (split / ".done").read_text() == "seed_scheme=v2\n"
     (split / ".done").write_text("done\n")
     with pytest.raises(RuntimeError, match="pre-v2 seed scheme"):
-        _run(module.gen_split, tmp_path, "dev", 2, 3, FRAMES, OBJECTS)
+        run_quiet(module.gen_split, tmp_path, "dev", 2, 3, FRAMES, OBJECTS)
 
 
 def test_train_matches_jax(roots, trained):
@@ -242,10 +191,10 @@ def test_analyze_csv_matches_jax(roots, trained, tmp_path):
     (tmp_path / "test").symlink_to(port_root / "test")
     leaf = jax_best(jax_root / "checkpoints" / "opnet")
     _export(leaf, "opnet", tmp_path / "checkpoints" / "opnet" / f"{leaf.name}.npz")
-    _run(jax_containment_run.analyze, jax_root)
-    _run(containment_run.analyze, tmp_path, "cpu")
-    boxes = _files(tmp_path / "results")
-    assert len(boxes) == 3 and boxes == _files(jax_root / "results")
+    run_quiet(jax_containment_run.analyze, jax_root)
+    run_quiet(containment_run.analyze, tmp_path, "cpu")
+    boxes = files(tmp_path / "results")
+    assert len(boxes) == 3 and boxes == files(jax_root / "results")
     ours = pd.read_csv(tmp_path / "analysis.csv")
     theirs = pd.read_csv(jax_root / "analysis.csv")
     assert list(ours.columns) == list(theirs.columns) and len(ours) == 3
@@ -290,8 +239,8 @@ def test_variant_sweep_eval_only_reads_npz_name(roots, swept):
     shutil.copytree(leaf, jax_copy)
     _export(leaf, "opnet", port_root / "sweep_eval" / "opnet" / "opnet" / "01-01-26_0.448.npz")
     argv = ["--sweep-dir", "sweep_eval", "--eval-only", "--models", "opnet"]
-    _jax_main(jax_variant_sweep, ["--root", str(jax_root), *argv])
-    _run(variant_sweep.main, ["--root", str(port_root), *argv, "--device", "cpu"])
+    jax_main(jax_variant_sweep, ["--root", str(jax_root), *argv])
+    run_quiet(variant_sweep.main, ["--root", str(port_root), *argv, "--device", "cpu"])
     ours = json.loads((port_root / "sweep_eval" / "results.json").read_text())
     theirs = json.loads((jax_root / "sweep_eval" / "results.json").read_text())
     assert ours == theirs
@@ -311,8 +260,8 @@ def test_cater_grid_run_row_matches_jax(roots, converted):
     checkpoint is skipped by both."""
     jax_root, _ = roots
     argv = ["--models", "opnet", "transformer_lstm"]
-    jax_out = _jax_main(jax_cater_grid_run, ["--root", str(jax_root), *argv])
-    port_out = _run(cater_grid_run.main, ["--root", str(converted), *argv, "--device", "cpu"])
+    jax_out = jax_main(jax_cater_grid_run, ["--root", str(jax_root), *argv])
+    port_out = run_quiet(cater_grid_run.main, ["--root", str(converted), *argv, "--device", "cpu"])
     ours = json.loads((converted / "cater" / "grid_results.json").read_text())
     theirs = json.loads((jax_root / "cater" / "grid_results.json").read_text())
     assert ours == theirs and [r["model"] for r in ours] == ["opnet"]
@@ -328,27 +277,27 @@ def test_unbiased_eval_matches_jax(roots, converted, tmp_path):
     weights (the JAX sweep's opnet); an orbax tree makes the port raise."""
     jax_root, _ = roots
     argv = ["--videos", "3", "--frames", str(FRAMES), "--models", "opnet"]
-    _jax_main(jax_unbiased_eval, ["--root", str(tmp_path / "jax"), *argv,
+    jax_main(jax_unbiased_eval, ["--root", str(tmp_path / "jax"), *argv,
                                   "--checkpoints-root", str(jax_root)])
-    _run(unbiased_eval.main, ["--root", str(tmp_path / "port"), *argv,
+    run_quiet(unbiased_eval.main, ["--root", str(tmp_path / "port"), *argv,
                               "--checkpoints-root", str(converted), "--device", "cpu"])
-    split = {k: v for k, v in _files(tmp_path / "port").items()
+    split = {k: v for k, v in files(tmp_path / "port").items()
              if k.split(os.sep)[0] in ("scenes", "labels", "annotations", "od_perception")}
-    theirs = _files(tmp_path / "jax")
+    theirs = files(tmp_path / "jax")
     assert split and all(theirs[k] == v for k, v in split.items())
     ours = json.loads((tmp_path / "port" / "results.json").read_text())
     assert ours == json.loads((tmp_path / "jax" / "results.json").read_text())
     with pytest.raises(ValueError, match="export_torch_weights"):
-        _run(unbiased_eval.main, ["--root", str(tmp_path / "port"), *argv,
+        run_quiet(unbiased_eval.main, ["--root", str(tmp_path / "port"), *argv,
                                   "--checkpoints-root", str(jax_root), "--device", "cpu"])
 
 
 def test_make_unbsub_tree_matches_jax(roots, tmp_path):
     jax_root, _ = roots
     argv = ["--src", str(jax_root), "--train", "3", "--dev", "1"]
-    _jax_main(jax_make_unbsub, [*argv, "--out", str(tmp_path / "jax")])
-    _run(make_unbsub.main, [*argv, "--out", str(tmp_path / "port")])
-    ours, theirs = _files(tmp_path / "port"), _files(tmp_path / "jax")
+    jax_main(jax_make_unbsub, [*argv, "--out", str(tmp_path / "jax")])
+    run_quiet(make_unbsub.main, [*argv, "--out", str(tmp_path / "port")])
+    ours, theirs = files(tmp_path / "port"), files(tmp_path / "jax")
     assert ours == theirs
     assert ours["test"] == ("link", str(jax_root / "test"))
     assert sum(1 for v in ours.values() if isinstance(v, tuple)) == 2 * (3 + 1) + 3
@@ -362,9 +311,9 @@ def test_moe_balance_matches_jax(roots, narrow, tmp_path):
     jax_save_params(tmp_path / "jax" / "opnet_moe" / "01-01-26_0.5", params)
     save_params(tmp_path / "port" / "opnet_moe" / "01-01-26_0.5.npz",
                 params_from_jax(jax.device_get(params)))
-    _jax_main(jax_moe_balance, ["--root", str(jax_root), "--batch", "2",
+    jax_main(jax_moe_balance, ["--root", str(jax_root), "--batch", "2",
                                 "--ckpt-dir", str(tmp_path / "jax" / "opnet_moe")])
-    _run(moe_balance.main, ["--root", str(port_root), "--batch", "2", "--device", "cpu",
+    run_quiet(moe_balance.main, ["--root", str(port_root), "--batch", "2", "--device", "cpu",
                             "--ckpt-dir", str(tmp_path / "port" / "opnet_moe")])
     ours = json.loads((tmp_path / "port" / "moe_balance.json").read_text())
     theirs = json.loads((tmp_path / "jax" / "moe_balance.json").read_text())

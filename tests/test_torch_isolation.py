@@ -379,7 +379,8 @@ def test_trackers_run_without_jax_or_cv2(tmp_path):
 
 
 EXPERIMENTS = ("containment_run", "variant_sweep", "cater_grid_run", "unbiased_eval",
-               "make_unbsub", "moe_balance")
+               "make_unbsub", "moe_balance", "two_stage_run", "detector_800px_run",
+               "detector_infer800", "detector_transfer_demo", "tracker_benchmark", "siam_run")
 
 
 def test_experiment_drivers_help_without_jax(tmp_path):
@@ -391,7 +392,7 @@ def test_experiment_drivers_help_without_jax(tmp_path):
     for name in EXPERIMENTS:
         source = (REPO / "scripts" / f"{name}.py").read_text()
         flags[name] = sorted({"--device" if f == "--cpu" else f
-                              for f in re.findall(r'add_argument\(\s*"(--[a-z-]+)"', source)})
+                              for f in re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', source)})
     out = _run(f"""
         import contextlib, io, runpy
         flags = {flags!r}
@@ -445,6 +446,49 @@ def test_containment_run_analyze_raises_without_a_card(tmp_path):
         containment_run.main(["analyze", "--root", "r", "--device", "cpu"])
         assert len(list(Path("r/results").glob("*_bb.json"))) == 2
         assert Path("r/analysis.csv").read_text().startswith("videos_names,overall_iou,")
+        assert sys.modules["jax"] is None
+        print("ok")
+    """, tmp_path)
+    assert out.strip().endswith("ok")
+
+
+def test_perception_drivers_raise_without_a_card(tmp_path):
+    """Each perception and tracker driver, asked for a stage that runs on
+    the card, raises before it does any work; with `--device cpu` it goes on
+    to the work (here, to a missing checkpoint)."""
+    out = _run("""
+        from pathlib import Path
+        import torch
+        assert not torch.cuda.is_available()
+        from objectpermanence_tpu_torch.experiments import (
+            detector_800px_run, detector_infer800, detector_transfer_demo, siam_run,
+            tracker_benchmark, two_stage_run)
+        calls = {"two_stage_run": (two_stage_run.main, ["all", "--root", "r"]),
+                 "two_stage_run dettrain": (two_stage_run.main, ["dettrain", "--root", "r"]),
+                 "detector_800px_run": (detector_800px_run.main, ["steptime", "--root", "r"]),
+                 "detector_800px_run contract": (detector_800px_run.main,
+                                                 ["contract", "--root", "r"]),
+                 "detector_infer800": (detector_infer800.main, ["--root", "r"]),
+                 "detector_transfer_demo": (detector_transfer_demo.main, ["--root", "t"]),
+                 "tracker_benchmark": (tracker_benchmark.main, ["--root", "b"]),
+                 "siam_run": (siam_run.main, ["train", "--root", "s"])}
+        for name, (main, argv) in calls.items():
+            try:
+                main(argv)
+            except RuntimeError as exc:
+                assert "no CUDA device" in str(exc), (name, exc)
+            else:
+                raise AssertionError(f"{name} ran without a card")
+        assert not Path("t").exists() and not Path("b").exists() and not Path("s").exists()
+        for main, argv, message in (
+                (detector_infer800.main, ["--root", "r"], "train800 first"),
+                (two_stage_run.main, ["analyze", "--root", "r"], "no trained opnet checkpoint")):
+            try:
+                main(argv + ["--device", "cpu"])
+            except FileNotFoundError as exc:
+                assert message in str(exc), exc
+            else:
+                raise AssertionError("found a checkpoint in an empty root")
         assert sys.modules["jax"] is None
         print("ok")
     """, tmp_path)
