@@ -22,6 +22,7 @@ from objectpermanence_tpu_torch.data.ingest import IngestedDataset, batches, ing
 from objectpermanence_tpu_torch.models.reasoning import OPNet
 from objectpermanence_tpu_torch.models.registry import ModelSpec, init_model, model_class
 from objectpermanence_tpu_torch.ops.boxes import FRAME_SHAPES, denormalize_boxes
+from objectpermanence_tpu_torch.utils import trace
 
 
 def fused_opnet_eligible(model_name: str) -> bool:
@@ -46,7 +47,11 @@ def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32,
     ignored, as in JAX: they run in float32.
 
     On the card TF32 is switched off for matmuls and cuDNN, so the input
-    projection outside the kernel keeps fp32 parity with the reference."""
+    projection outside the kernel keeps fp32 parity with the reference.
+
+    A call is the root span `objperm.serve.predict`, whose id is the
+    request's; `boxes` on the host is a blocking copy to the card
+    (`objperm.host.h2d`)."""
     device = resolve_device(device)
     if out_dtype not in (torch.int16, torch.int32):
         raise ValueError(f"out_dtype must be torch.int16 or torch.int32, got {out_dtype}")
@@ -62,11 +67,16 @@ def make_predict_step(spec: ModelSpec, device=None, out_dtype=torch.int32,
 
     @torch.inference_mode()
     def predict_step(model, boxes):
-        boxes = torch.as_tensor(boxes, dtype=torch.float32).to(device).contiguous()
-        out = model(boxes, compute_dtype=fused_dtype) if fused else model.forward_layers(boxes)
-        if spec.double_output:
-            out = out[0]
-        return denormalize_boxes(out, out_dtype)
+        with trace.span("objperm.serve.predict"):
+            boxes = torch.as_tensor(boxes, dtype=torch.float32)
+            with trace.h2d(boxes, device):
+                boxes = boxes.to(device)
+            boxes = boxes.contiguous()
+            out = (model(boxes, compute_dtype=fused_dtype) if fused
+                   else model.forward_layers(boxes))
+            if spec.double_output:
+                out = out[0]
+            return denormalize_boxes(out, out_dtype)
 
     return predict_step
 
@@ -77,7 +87,9 @@ def predict_dataset(spec: ModelSpec, model, dataset: IngestedDataset, batch_size
     predict_step = make_predict_step(spec, device)
     results: Dict[str, np.ndarray] = {}
     for batch in batches(dataset, batch_size):
-        pred_px = predict_step(model, batch["boxes"]).cpu().numpy()
+        pred_px = predict_step(model, batch["boxes"])
+        with trace.d2h(pred_px):
+            pred_px = pred_px.cpu().numpy()
         for name, boxes in zip(batch["names"], pred_px):
             results[name] = boxes
     return results

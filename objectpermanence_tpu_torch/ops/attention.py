@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from objectpermanence_tpu_torch.ops.linear import Linear
+from objectpermanence_tpu_torch.utils import trace
 
 DROPOUT_RATE = 0.1
 FF_DIM = 2048
@@ -99,7 +100,8 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.ModuleList):
-    """`num_layers` encoder layers in a row (`encoder_init` / `encoder_apply`)."""
+    """`num_layers` encoder layers in a row (`encoder_init` / `encoder_apply`),
+    in the span `objperm.model.encoder` with its device interval."""
 
     def __init__(self, num_layers: int, dim: int, num_heads: int, ff_dim: int = FF_DIM,
                  generator=None):
@@ -107,6 +109,7 @@ class Encoder(nn.ModuleList):
                          for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        for layer in self:
-            x = layer(x, generator)
+        with trace.span("objperm.model.encoder", x.device):
+            for layer in self:
+                x = layer(x, generator)
         return x

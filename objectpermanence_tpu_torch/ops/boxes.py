@@ -8,6 +8,8 @@ Boxes are `[x1, y1, x2, y2]` in pixels or normalized by `FRAME_SHAPES`;
 import numpy as np
 import torch
 
+from objectpermanence_tpu_torch.utils import trace
+
 # width, height, width, height: the CATER frame shape used for normalization
 FRAME_SHAPES = np.array([320.0, 240.0, 320.0, 240.0])
 
@@ -15,8 +17,11 @@ FRAME_SHAPES = np.array([320.0, 240.0, 320.0, 240.0])
 def denormalize_boxes(boxes: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     """Normalized boxes -> integer pixels: the product in the boxes' dtype
     (float32, as the JAX package computes it on the device), truncated
-    toward zero."""
-    scale = torch.as_tensor(FRAME_SHAPES, dtype=boxes.dtype, device=boxes.device)
+    toward zero. On a card the scale is a blocking copy from the host
+    (`objperm.host.h2d`)."""
+    scale = torch.as_tensor(FRAME_SHAPES, dtype=boxes.dtype)
+    with trace.h2d(scale, boxes.device):
+        scale = scale.to(boxes.device)
     return (boxes * scale).to(dtype)
 
 

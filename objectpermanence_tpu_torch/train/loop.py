@@ -30,7 +30,11 @@
 - Checkpoints: the best-dev params as `<ckpt>/<model>/<dd-mm-yy>_<miou>.npz`
   and a resumable state per epoch under `<ckpt>/<model>/resume/epoch_NNNN/`.
 - Observability: `profile_dir` traces the first epoch's steps with
-  torch.profiler, `debug_nans` runs under `torch.autograd.detect_anomaly`,
+  torch.profiler; the trace carries the port's spans (`utils/trace.py`):
+  each `objperm.train.step` with its encoder and `objperm.train.backward`,
+  and the blocking copies between host and device (`objperm.host.h2d`:
+  a batch's indices, its weights; `objperm.host.d2h`: the metrics read at
+  each print step). `debug_nans` runs under `torch.autograd.detect_anomaly`,
   `metrics_file` gets one json line per epoch; a NaN loss aborts.
 """
 
@@ -57,6 +61,7 @@ from objectpermanence_tpu_torch.parallel.mesh import batch_sharding, data_group,
 from objectpermanence_tpu_torch.train.losses import attention_ce_loss, total_loss
 from objectpermanence_tpu_torch.train.plateau import ReduceLROnPlateau
 from objectpermanence_tpu_torch.utils import checkpoint as ckpt
+from objectpermanence_tpu_torch.utils import trace
 
 
 def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
@@ -101,36 +106,42 @@ def make_train_step(spec: ModelSpec, optimizer: torch.optim.Optimizer, generator
     `weight_total`. The weighted means are scaled by the rank's share of
     that sum times the data width, so DDP's mean of the gradients is the
     global batch's; the metrics returned are the global batch's, reduced
-    over the ranks."""
+    over the ranks.
+
+    A step is the root span `objperm.train.step`, whose id is the step's,
+    with `loss.backward()` in `objperm.train.backward`, which takes its
+    device interval on the batch's device."""
     group = None if mesh is None else data_group(mesh)
     width = 1 if mesh is None else data_width(mesh)
 
     def train_step(model, boxes, labels, mask, weights=None, tracks=None, weight_total=None):
-        optimizer.zero_grad(set_to_none=True)
-        out, logits, aux = _forward(spec, model, boxes, generator, weights, group)
-        loss, metrics = total_loss(out, labels, mask, spec.no_labels, sample_weight=weights)
-        share = None
-        if group is not None and weights is not None:
-            share = weights.sum() * width / weight_total
-            loss = loss * share
-            metrics = {key: value * share for key, value in metrics.items()}
-        if aux is not None:
-            loss = loss + spec.aux_loss_weight * aux
-            metrics = {**metrics, "loss": loss, "balance_loss": aux}
-        if spec.att_ce_weight and tracks is not None:
-            att_ce = attention_ce_loss(logits, tracks, sample_weight=weights)
-            if share is not None:
-                att_ce = att_ce * share
-            loss = loss + spec.att_ce_weight * att_ce
-            metrics = {**metrics, "loss": loss, "att_ce_loss": att_ce}
-        loss.backward()
-        optimizer.step()
-        metrics = {key: value.detach() for key, value in metrics.items()}
-        if group is not None:
-            values = torch.stack(list(metrics.values()))
-            dist.all_reduce(values, group=group)
-            metrics = dict(zip(metrics, values / width))
-        return metrics
+        with trace.span("objperm.train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            out, logits, aux = _forward(spec, model, boxes, generator, weights, group)
+            loss, metrics = total_loss(out, labels, mask, spec.no_labels, sample_weight=weights)
+            share = None
+            if group is not None and weights is not None:
+                share = weights.sum() * width / weight_total
+                loss = loss * share
+                metrics = {key: value * share for key, value in metrics.items()}
+            if aux is not None:
+                loss = loss + spec.aux_loss_weight * aux
+                metrics = {**metrics, "loss": loss, "balance_loss": aux}
+            if spec.att_ce_weight and tracks is not None:
+                att_ce = attention_ce_loss(logits, tracks, sample_weight=weights)
+                if share is not None:
+                    att_ce = att_ce * share
+                loss = loss + spec.att_ce_weight * att_ce
+                metrics = {**metrics, "loss": loss, "att_ce_loss": att_ce}
+            with trace.span("objperm.train.backward", boxes.device):
+                loss.backward()
+            optimizer.step()
+            metrics = {key: value.detach() for key, value in metrics.items()}
+            if group is not None:
+                values = torch.stack(list(metrics.values()))
+                dist.all_reduce(values, group=group)
+                metrics = dict(zip(metrics, values / width))
+            return metrics
 
     return train_step
 
@@ -157,7 +168,8 @@ def make_eval_step(spec: ModelSpec):
 
 
 class DeviceDataset:
-    """A dataset resident on the device; batches are gathered there by index."""
+    """A dataset resident on the device; batches are gathered there by index,
+    which `batch` copies from the host (`objperm.host.h2d`)."""
 
     def __init__(self, dataset: IngestedDataset, device):
         self.count = len(dataset)
@@ -172,7 +184,9 @@ class DeviceDataset:
         self.tracks = torch.from_numpy(np.asarray(tracks, np.int64)).to(self.device)
 
     def batch(self, indices: np.ndarray):
-        idx = torch.as_tensor(indices, dtype=torch.long).to(self.device)
+        idx = torch.as_tensor(indices, dtype=torch.long)
+        with trace.h2d(idx, self.device):
+            idx = idx.to(self.device)
         return self.boxes[idx], self.labels[idx], self.mask[idx], self.tracks[idx]
 
     def batch_indices(self, batch_size: int, *, shuffle: bool = False, seed: int = 0):
@@ -205,7 +219,8 @@ def evaluate(eval_step, model, data: DeviceDataset, batch_size: int,
     """Full-dataset eval: average loss, mean IoU, containment mIoU (over the
     videos with at least one containment frame). With `mesh`, each rank runs
     its slice of every batch and the results are gathered, so every rank
-    returns the same metrics."""
+    returns the same metrics. Each batch's four reads onto the host are one
+    `objperm.host.d2h` span."""
     model.eval()
     total = 0
     loss_sum = 0.0
@@ -217,10 +232,11 @@ def evaluate(eval_step, model, data: DeviceDataset, batch_size: int,
         loss = metrics["loss"]
         if mesh is not None:
             loss, vid_iou, c_sum, c_cnt = _gather_eval(mesh, loss, vid_iou, c_sum, c_cnt)
-        loss_sum += float(loss) * real
-        video_ious.append(vid_iou.cpu().numpy()[:real])
-        cont_sums.append(c_sum.cpu().numpy()[:real])
-        cont_counts.append(c_cnt.cpu().numpy()[:real])
+        with trace.d2h(loss, vid_iou, c_sum, c_cnt):
+            loss_sum += float(loss) * real
+            video_ious.append(vid_iou.cpu().numpy()[:real])
+            cont_sums.append(c_sum.cpu().numpy()[:real])
+            cont_counts.append(c_cnt.cpu().numpy()[:real])
         total += real
     model.train()
 
@@ -329,14 +345,18 @@ def training_main(spec: ModelSpec, train_dataset: IngestedDataset,
                     train_data.batch_indices(batch_size, shuffle=True, seed=seed + epoch), 1):
                 boxes, labels, mask, tracks = train_data.batch(indices[rows])
                 weights = torch.from_numpy(
-                    (np.arange(batch_size) < real).astype(np.float32)[rows]).to(device)
+                    (np.arange(batch_size) < real).astype(np.float32)[rows])
+                with trace.h2d(weights, device):
+                    weights = weights.to(device)
                 pending.append(train_step(stepped, boxes, labels, mask, weights, tracks,
                                           weight_total=real))
 
                 if batch_idx % cfg.print_step == 0:
-                    for m in pending:
-                        for key in running:
-                            running[key] += float(m[key])
+                    read = [m[key] for m in pending for key in running]
+                    with trace.d2h(*read):
+                        for m in pending:
+                            for key in running:
+                                running[key] += float(m[key])
                     pending = []
                     if not np.isfinite(running["loss"]):
                         raise RuntimeError(f"Loss is {running['loss'] / cfg.print_step}, "

@@ -1,1 +1,1 @@
-"""Checkpoints of the port."""
+"""Checkpoints, spans and counters of the port."""

@@ -204,6 +204,43 @@ def test_predict_step_bf16_on_cuda_goes_through_kernel():
 
 
 @pytest.mark.gpu
+def test_predict_step_spans_on_cuda():
+    """Under `trace.recording()`: OPNet's `predict_step` at B=16 makes one
+    blocking copy a call, `denormalize_boxes`' scale, inside its root's
+    host interval; transformer_lstm's encoder has a device interval that is
+    positive and under its call's host interval."""
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.infer.reasoning import make_predict_step
+    from objectpermanence_tpu_torch.utils import trace
+    device = _card()
+    boxes, _, opnet = _inputs(16, device)
+    config = load_model_config("transformer_lstm")
+    spec = get_model_spec("transformer_lstm", config)
+    transformer = spec.build(config, torch.Generator().manual_seed(3)).to(device).eval()
+    for name, model, x in (("opnet", opnet, boxes),
+                           ("transformer_lstm", transformer,
+                            boxes[..., :spec.feature_width].contiguous())):
+        predict = make_predict_step(get_model_spec(name), device=device, out_dtype=torch.int16)
+        predict(model, x)
+        trace.clear()
+        with trace.recording():
+            for _ in range(3):
+                predict(model, x)
+        torch.cuda.synchronize()
+        kept = trace.spans()
+        trace.clear()
+        roots = [s for s in kept if s.parent is None]
+        assert [s.name for s in roots] == ["objperm.serve.predict"] * 3
+        for root in roots:
+            mine = {s.name: s for s in kept if s.root == root.id and s is not root}
+            assert root.syncs == 1 and root.device_ms is None and root.host_ms > 0
+            copy = mine["objperm.host.h2d"]
+            assert root.start_ns <= copy.start_ns <= copy.end_ns <= root.end_ns
+            if name == "transformer_lstm":
+                assert 0 < mine["objperm.model.encoder"].device_ms < root.host_ms
+
+
+@pytest.mark.gpu
 def test_module_on_cuda_goes_through_kernel():
     device = _card()
     boxes, _, model = _inputs(8, device)
