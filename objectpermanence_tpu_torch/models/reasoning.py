@@ -182,6 +182,6 @@ class TransformerLSTM(nn.Module):
         if self.reference_compat:
             snitch = self.encoder(feats.transpose(0, 1), generator)[0]
         else:
-            snitch = self.encoder(feats, generator)[:, 0]
+            snitch = self.encoder(feats, generator, slot=0)
         return self.box_head(self.video_lstm(snitch.reshape(batch, frames, -1)))
 

@@ -13,6 +13,17 @@ sequences are 15 tokens, so this is plain tensor code on every device.
 Dropout runs only in train mode and draws its mask from the `generator`
 the caller passes (on the tensors' device); in eval mode it is the
 identity, as `deterministic=True` in JAX.
+
+A caller that reads one slot of the encoder's output passes `slot`: the
+last layer then runs its attention over every slot, as the full form does,
+and its out-projection, both LayerNorms and the feed-forward, most of its
+work, on that slot's rows alone. The attention keeps its full shapes:
+on the card a one-query product runs on other kernels (cuBLAS's gemv),
+which sum in another order, and a train step then moves the weights whose
+gradient is at round-off (elements of `box_proj.w`) away from where the
+full form moves them. Its dropout masks are still drawn over the full
+shape and sliced, so the draws and the generator's state after them are
+the full form's.
 """
 
 import math
@@ -29,10 +40,15 @@ FF_DIM = 2048
 LAYERNORM_EPS = 1e-5
 
 
-def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator=None, slot=None,
+            length=None) -> torch.Tensor:
     """Zero each element with probability `rate` and scale the rest by
-    1 / (1 - rate), the mask drawn from `generator`."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    1 / (1 - rate), the mask drawn from `generator`. With `slot`, `x (N, C)`
+    is slot `slot` of an `(N, length, C)` tensor: the mask is drawn over that
+    whole shape and its slot taken."""
+    shape = x.shape if slot is None else (x.shape[0], length, x.shape[-1])
+    draw = torch.rand(shape, generator=generator, device=x.device)
+    keep = (draw if slot is None else draw[:, slot]) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -66,8 +82,9 @@ class MultiheadSelfAttention(nn.Module):
         with torch.no_grad():
             self.out.b.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Self-attention over `x (N, L, D)`."""
+    def forward(self, x: torch.Tensor, slot=None) -> torch.Tensor:
+        """Self-attention over `x (N, L, D)`; with `slot`, the out-projection
+        of slot `slot`'s rows alone, `(N, D)`."""
         n, length, dim = x.shape
         num_heads, head_dim = self.w_in.shape[2], self.w_in.shape[3]
         qkv = torch.matmul(x, self.w_in.reshape(dim, 3 * dim)) + self.b_in.reshape(3 * dim)
@@ -75,7 +92,7 @@ class MultiheadSelfAttention(nn.Module):
                    for t in qkv.chunk(3, dim=-1))
         probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim), dim=-1)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(n, length, dim)
-        return self.out(ctx)
+        return self.out(ctx if slot is None else ctx[:, slot])
 
 
 class EncoderLayer(nn.Module):
@@ -90,11 +107,16 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        def drop(t):
-            return dropout(t, DROPOUT_RATE, generator) if self.training else t
+    def forward(self, x: torch.Tensor, generator=None, slot=None) -> torch.Tensor:
+        """`x (N, L, D)` -> `(N, L, D)`; with `slot`, slot `slot`'s rows alone,
+        `(N, D)`."""
+        length = x.shape[1]
 
-        x = self.norm1(x + drop(self.attn(x)))
+        def drop(t):
+            return dropout(t, DROPOUT_RATE, generator, slot, length) if self.training else t
+
+        residual = x if slot is None else x[:, slot]
+        x = self.norm1(residual + drop(self.attn(x, slot)))
         ff = self.ff2(drop(torch.relu(self.ff1(x))))
         return self.norm2(x + drop(ff))
 
@@ -108,8 +130,12 @@ class Encoder(nn.ModuleList):
         super().__init__(EncoderLayer(dim, num_heads, ff_dim, generator)
                          for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None, slot=None) -> torch.Tensor:
+        """`x (N, L, D)` -> `(N, L, D)`; with `slot`, the last layer runs its
+        out-projection, LayerNorms and feed-forward on slot `slot`'s rows
+        alone and the encoder returns them, `(N, D)`."""
+        last = len(self) - 1
         with trace.span("objperm.model.encoder", x.device):
-            for layer in self:
-                x = layer(x, generator)
+            for i, layer in enumerate(self):
+                x = layer(x, generator, slot if i == last else None)
         return x

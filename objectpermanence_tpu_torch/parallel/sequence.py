@@ -134,7 +134,7 @@ def make_sequence_parallel_transformer_forward(mesh):
     def encoder_stage(model, boxes_s):
         b, t, o, _ = boxes_s.shape
         tokens = torch.relu(model.box_proj(boxes_s)).reshape(b * t, o, -1)
-        return model.encoder(tokens)[:, 0].reshape(b, t, -1)    # the snitch's slot
+        return model.encoder(tokens, slot=0).reshape(b, t, -1)    # the snitch's slot
 
     encoder_sp = _stage(mesh, encoder_stage)
     head_sp = _stage(mesh, lambda head, h: head(h))

@@ -3,7 +3,8 @@ fused OPNet forward (K1), the LSTM recurrence forward, backward and
 forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
 one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
 the bf16 modes of K1, K7, K8 and K9; the five reasoning models beside OPNet
-on the LSTM kernels, `StackedLSTM`'s launches, and `bench_torch.py`; the
+on the LSTM kernels, transformer_lstm's one-slot encoder against its full
+form, `StackedLSTM`'s launches, and `bench_torch.py`; the
 SiamRPN tracker (library convs, no kernel of the port) on the card against
 the CPU.
 
@@ -54,6 +55,7 @@ networks pick different anchors, a pick whose penalized score is within 1e-4
 of the CPU's best (a near-tie), with none of the port's kernels launched.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -489,6 +491,55 @@ def test_new_model_on_card_matches_cpu(name, compat):
         grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
     for key, want_grad in grads[1].items():
         limit = 1e-4 * max(1.0, want_grad.abs().max().item())
+        assert (grads[0][key] - want_grad).abs().max().item() <= limit, key
+
+
+def _transformer_full_rows(model, boxes, generator=None):
+    """`TransformerLSTM.forward_layers` with the encoder's full form, slot 0
+    taken after it."""
+    batch, frames, objects = boxes.shape[:3]
+    feats = torch.relu(model.box_proj(boxes)).reshape(batch * frames, objects, -1)
+    snitch = model.encoder(feats, generator)[:, 0]
+    return model.box_head(model.video_lstm(snitch.reshape(batch, frames, -1)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["eval", "train_step"])
+def test_transformer_one_slot_encoder_matches_full_rows(mode):
+    """transformer_lstm at its shipped widths on 16 served videos (a train
+    batch), TF32 off: `forward_layers` (the encoder's last layer on slot 0's
+    rows) against the full form's slot 0 within 1e-6 x max |full's|, in eval
+    mode on K4 and in one train step on K2/K3 with dropout from one seeded
+    generator, whose state both forms leave the same; the step's gradients,
+    which sum over fewer rows, within 1e-5 x max(1, max |full's|) a leaf."""
+    from objectpermanence_tpu_torch.config import load_model_config
+    device = _card()
+    config = load_model_config("transformer_lstm")
+    model = get_model_spec("transformer_lstm", config).build(
+        config, torch.Generator().manual_seed(3)).to(device)
+    boxes, _, _ = _inputs(16, device)
+    boxes = boxes[..., :5].contiguous()
+    if mode == "eval":
+        with torch.no_grad():
+            got = model.eval().forward_layers(boxes)
+            want = _transformer_full_rows(model, boxes)
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+        return
+    model.train()
+    outs, states, grads = [], [], []
+    for forward in (model.forward_layers, functools.partial(_transformer_full_rows, model)):
+        generator = torch.Generator(device).manual_seed(11)
+        model.zero_grad()
+        y = forward(boxes, generator)
+        y.square().mean().backward()
+        outs.append(y.detach())
+        states.append(generator.get_state())
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    assert torch.equal(states[0], states[1])
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-6 * outs[1].abs().max().item()
+    for key, want_grad in grads[1].items():
+        limit = 1e-5 * max(1.0, want_grad.abs().max().item())
         assert (grads[0][key] - want_grad).abs().max().item() <= limit, key
 
 
