@@ -1456,8 +1456,7 @@ def phase_preprocess_path(device):
 
 def profile_chunk(detector, frames, chunks=5, profile_chunks=3):
     """Where one chunk of the detector spends its time: the four stages by
-    CUDA events around each (the RPN's and postprocess's NMS rounds wait on
-    the host once per round), the whole call by the host clock (frames up,
+    CUDA events around each, the whole call by the host clock (frames up,
     detections down), then the device's busy share and top 8 kernels over a
     torch.profiler window of whole calls."""
     from objectpermanence_tpu_torch.models.detector.detector import (

@@ -45,6 +45,7 @@ from objectpermanence_tpu_torch.ops.roi_align_kernel import (
     roi_align_batched, roi_align_trainable, roi_align_windowed, roi_align_windowed_trainable,
 )
 from objectpermanence_tpu_torch.ops.roi_align_window import contract_stats
+from objectpermanence_tpu_torch.utils import trace
 
 # the reference divides frames by 256 before the detector, then applies the
 # ImageNet mean/std of the torchvision transform
@@ -260,14 +261,18 @@ def detect_forward(model: Detector, images: torch.Tensor, config: DetectorConfig
                    anchors: List[torch.Tensor]):
     """Raw frames (B, H, W, 3) -> boxes (B, D, 4) in the frames' own
     coordinates, labels (B, D), scores (B, D), valid (B, D)."""
-    prepped = preprocess_images(images, config)
-    pyramid = forward_features(model, prepped)
-    proposals, prop_scores = propose(model, pyramid, config, anchors)
-    pooled = batched_roi_align(pyramid[:4], proposals, config)
-    cls_logits, box_deltas = model.roi_heads(pooled)
-    boxes, labels, scores = postprocess_detections(
-        cls_logits, box_deltas, proposals, prop_scores, config.padded_hw,
-        config.score_thresh, config.nms_thresh, config.detections_per_img)
+    device = images.device
+    with trace.span("objperm.detector.backbone", device):
+        prepped = preprocess_images(images, config)
+        pyramid = forward_features(model, prepped)
+    with trace.span("objperm.detector.proposals", device):
+        proposals, prop_scores = propose(model, pyramid, config, anchors)
+    with trace.span("objperm.detector.heads", device):
+        pooled = batched_roi_align(pyramid[:4], proposals, config)
+        cls_logits, box_deltas = model.roi_heads(pooled)
+        boxes, labels, scores = postprocess_detections(
+            cls_logits, box_deltas, proposals, prop_scores, config.padded_hw,
+            config.score_thresh, config.nms_thresh, config.detections_per_img)
     boxes = boxes / config.scale  # back to the frames' coordinates
     return boxes, labels, scores, scores > NEG_INF / 10
 
@@ -318,16 +323,37 @@ class CaterDetector:
         """frames (B, H, W, 3) RGB -> (boxes, labels, scores, valid) as numpy.
         Then reads the windowed RoIAlign's contract counts, which warns once
         on the first out-of-contract roi (the outputs' copy has synchronised
-        the card already)."""
-        images = torch.as_tensor(np.asarray(frames)).to(self.device)
+        the card already). The frames' copy to the card and the outputs'
+        copies back are blocking copies (`objperm.host.h2d`, `.d2h`)."""
+        frames = torch.as_tensor(np.asarray(frames))
+        with trace.h2d(frames, self.device):
+            images = frames.to(self.device)
         out = detect_forward(self.model, images, self.config, self.anchors)
-        result = tuple(o.cpu().numpy() for o in out)
+        with trace.d2h(*out):
+            result = tuple(o.cpu().numpy() for o in out)
         contract_stats()
         return result
 
+    @torch.inference_mode()
     def detect_video(self, frames: np.ndarray, batch_size: int = 16):
         """All frames of one video, `batch_size` at a time -> (boxes, labels,
-        scores, valid) numpy arrays over every frame."""
-        chunks = [self(frames[start:start + batch_size])
-                  for start in range(0, len(frames), batch_size)]
-        return tuple(np.concatenate(parts) for parts in zip(*chunks))
+        scores, valid) numpy arrays over every frame, as `__call__` gives
+        them chunk by chunk. The video goes to the card in one blocking copy
+        (`objperm.host.h2d`), the chunks' forwards are queued one after
+        another with nothing read between them, and each output comes back
+        in one blocking copy (`objperm.host.d2h`), so the card does not wait
+        on the host between chunks. Then reads the windowed RoIAlign's
+        contract counts, as `__call__` does. One root span,
+        `objperm.detect.video`, whose id its chunks' spans share."""
+        with trace.span("objperm.detect.video"):
+            video = torch.as_tensor(np.asarray(frames))
+            with trace.h2d(video, self.device):
+                video = video.to(self.device)
+            chunks = [detect_forward(self.model, video[start:start + batch_size], self.config,
+                                     self.anchors)
+                      for start in range(0, len(video), batch_size)]
+            out = [torch.cat(parts) for parts in zip(*chunks)]
+            with trace.d2h(*out):
+                result = tuple(o.cpu().numpy() for o in out)
+            contract_stats()
+        return result

@@ -19,8 +19,9 @@ its interval; its id is the `root` of every span under it, the request
 (serve) or step (train) id they share.
 
 `host_syncs` is a plain integer, always on: the blocking copies between
-host and device that the reasoner paths make (`h2d`, `d2h`), each of which
-blocks the host until the stream has drained.
+host and device that the reasoner and detector paths make (`h2d`, `d2h`),
+each of which blocks the host until the stream has drained. The detector's
+NMS waits for nothing on a card (`ops/nms.py`: the kernel of `csrc/nms.cu`).
 
 The port's spans and counters, and what reads them:
 
@@ -32,9 +33,18 @@ The port's spans and counters, and what reads them:
   the encoder's forward, `encoder_ms_per_call.*`;
 - `objperm.train.backward` (device; `loss.backward()` in `train_step`):
   `backward_ms_per_call.train`;
+- `objperm.detect.video` (root; `models/detector/detector.py`'s
+  `CaterDetector.detect_video`): a video, whose spans the benchmark's
+  detector readers group;
+- `objperm.detector.backbone`, `objperm.detector.proposals`,
+  `objperm.detector.heads` (device; `detect_forward`): the image
+  preprocessing, ResNet and FPN; the RPN head and `generate_proposals` with
+  its NMS; RoIAlign, the box head and `postprocess_detections`:
+  `backbone_ms_per_call.preprocess`, `proposals_ms_per_call.preprocess`,
+  `heads_ms_per_call.preprocess`;
 - `objperm.host.h2d`, `objperm.host.d2h` with `host_syncs`: the host's
   wait, which `host_own_ms_per_call.*` takes out of a call's host time,
-  `host_syncs_per_call.*`, and `TrainingConfig.profile_dir`'s trace.
+  `host_syncs_per_call.*` (the detector's: its frames and outputs), and `TrainingConfig.profile_dir`'s trace.
 """
 
 import itertools

@@ -4,7 +4,8 @@ forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
 one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
 the bf16 modes of K1, K7, K8 and K9; the five reasoning models beside OPNet
 on the LSTM kernels, transformer_lstm's one-slot encoder against its full
-form, `StackedLSTM`'s launches, and `bench_torch.py`; the
+form, `StackedLSTM`'s launches, `bench_torch.py` and the detector's spans
+and blocking reads; the
 SiamRPN tracker (library convs, no kernel of the port) on the card against
 the CPU.
 
@@ -658,6 +659,84 @@ def test_detector_on_cuda_goes_through_k7():
     boxes, labels, scores, valid = detector.detect_video(frames, batch_size=30)
     assert roi_align_batched.launches == before + 1
     assert boxes.shape == (30, 100, 4) and np.isfinite(boxes[valid]).all()
+
+
+@pytest.mark.gpu
+def test_detect_video_spans_and_syncs_on_cuda():
+    """Under `trace.recording()`, a video of 2 chunks at the shipped
+    preprocess geometry: the root `objperm.detect.video`, each chunk's three
+    device spans with positive device intervals, the NMS kernel twice a
+    chunk (the RPN's and the class NMS), and a `host_syncs` delta of the
+    video's copies alone (its frames in once; boxes, labels, scores, valid
+    out once): NMS waits for nothing on the card, nor does a chunk wait for
+    the one before. The outputs are `__call__`'s chunk by chunk."""
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+    from objectpermanence_tpu_torch.ops import nms
+    from objectpermanence_tpu_torch.utils import trace
+    _card()
+    config = DetectorConfig(min_size=240, max_size=320, rpn_pre_nms_top_n=500,
+                            rpn_post_nms_top_n=300)
+    detector = CaterDetector(config)
+    frames = draw_frames(make_scene(2, num_frames=16))
+    detector.detect_video(frames, batch_size=8)
+    trace.clear()
+    before, launches = trace.host_syncs, nms.nms_mask.launches
+    with trace.recording():
+        detector.detect_video(frames, batch_size=8)
+    torch.cuda.synchronize()
+    kept = trace.spans()
+    trace.clear()
+    roots = [s for s in kept if s.parent is None]
+    assert [s.name for s in roots] == ["objperm.detect.video"]
+    root = roots[0]
+    for name in ("backbone", "proposals", "heads"):
+        spans = [s for s in kept if s.name == f"objperm.detector.{name}"]
+        assert len(spans) == 2 and all(s.parent == root.id and s.device_ms > 0 for s in spans)
+    assert nms.nms_mask.launches - launches == 2 * 2
+    assert root.syncs == trace.host_syncs - before == 1 + 4
+    whole = detector.detect_video(frames, batch_size=8)
+    chunked = [detector(frames[start:start + 8]) for start in (0, 8)]
+    for got, parts in zip(whole, zip(*chunked)):
+        np.testing.assert_array_equal(got, np.concatenate(parts))
+
+
+def _nms_rows(rng, rows, n, spread=60.0):
+    """Clustered boxes (rows, n, 4), scores with ties (a tenth repeat a
+    neighbour) and a sixth padding (NEG_INF)."""
+    from objectpermanence_tpu_torch.ops.nms import NEG_INF
+    centre = rng.uniform(0, 320, (rows, 1 + n // 20, 2))[:, rng.randint(0, 1 + n // 20, n)]
+    centre = centre + rng.normal(0, 4, (rows, n, 2))
+    size = rng.uniform(4, spread, (rows, n, 2))
+    boxes = np.concatenate([centre - size / 2, centre + size / 2], -1).astype(np.float32)
+    scores = rng.uniform(0, 1, (rows, n)).astype(np.float32)
+    tied = rng.uniform(size=(rows, n)) < 0.1
+    scores[:, 1:][tied[:, 1:]] = scores[:, :-1][tied[:, 1:]]
+    scores[rng.uniform(size=(rows, n)) < 1 / 6] = NEG_INF
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,threshold", [(3, 1, 0.5), (5, 63, 0.7), (4, 64, 0.5),
+                                              (6, 65, 0.7), (150, 500, 0.7), (30, 1000, 0.5),
+                                              (2, 2000, 0.5), (1, 4500, 0.3)])
+def test_nms_kernel_is_the_plain_fixed_point(rows, n, threshold):
+    """`csrc/nms.cu` against the plain rounds on the CPU, mask for mask: rows
+    on both sides of a 64-box word, the RPN's 150 x 500 and the class NMS's
+    30 x 1000 of a chunk, and rows longer than one block's walk. Its IoU is
+    the plain one rounding for rounding, so the masks are equal bit for
+    bit; one launch a call."""
+    from objectpermanence_tpu_torch.ops import nms
+    _card()
+    boxes, scores = _nms_rows(np.random.RandomState(n), rows, n)
+    want = nms.nms_mask(boxes, scores, threshold)
+    before = nms.nms_mask.launches
+    got = nms.nms_mask(boxes.cuda(), scores.cuda(), threshold)
+    torch.cuda.synchronize()
+    assert nms.nms_mask.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    valid = int((scores > nms.NEG_INF / 10).sum())
+    assert 0 < int(want.sum()) < valid or n == 1
 
 
 def _backward_case(batch, n, device, seed):

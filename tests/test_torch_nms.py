@@ -85,6 +85,31 @@ def test_nms_chain_and_equal_scores():
         assert want.tolist() == [i % 2 == 0 for i in range(len(boxes))]
 
 
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 23])
+def test_nms_mask_rows_settle_each_at_its_own_depth(depth):
+    """A batch whose rows need different numbers of rounds: a chain `depth`
+    deep, padded to 90 boxes, beside clustered rows with padding and ties.
+    Each row is JAX's mask for it alone, the chain keeps every other box,
+    and on the CPU no kernel launches (`nms_mask.launches`)."""
+    n = 90
+    chain, chain_scores = _chain(depth)
+    boxes = np.zeros((n, 4), np.float32)
+    boxes[:depth] = chain
+    scores = np.full(n, nms.NEG_INF, np.float32)
+    scores[:depth] = chain_scores
+    rng = np.random.RandomState(depth)
+    rows = [(boxes, scores)] + [(_boxes(rng, n), _scores(rng, n, pad=11, ties=6))
+                                for _ in range(3)]
+    launches = nms.nms_mask.launches
+    got = nms.nms_mask(torch.from_numpy(np.stack([b for b, _ in rows])),
+                       torch.from_numpy(np.stack([s for _, s in rows])), 0.7).numpy()
+    assert nms.nms_mask.launches == launches
+    for row, (b, s) in enumerate(rows):
+        want = np.asarray(jax_nms.nms_mask(jnp.asarray(b), jnp.asarray(s), 0.7))
+        np.testing.assert_array_equal(got[row], want)
+    assert got[0].tolist() == [i < depth and i % 2 == 0 for i in range(n)]
+
+
 def test_nms_threshold_is_strict():
     boxes = np.array([[0, 0, 10, 10], [0, 0, 10, 5]], np.float32)  # IoU exactly 0.5
     scores = np.array([0.9, 0.8], np.float32)

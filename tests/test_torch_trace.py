@@ -306,3 +306,70 @@ def test_a_traced_cell_reports_every_metric_read_from_the_port(cell):
     assert reported[f"host_syncs_per_call.{kind}"]["value"] == 0
     for name in want - {f"host_syncs_per_call.{kind}"}:
         assert reported[name]["value"] > 0 and reported[name]["unit"] == "ms"
+
+
+def _tiny_detector():
+    from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
+    from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
+
+    config = DetectorConfig(min_size=240, max_size=320, backbone_layers=(1, 1, 1, 1),
+                            backbone_width=16, fpn_channels=32, rpn_pre_nms_top_n=100,
+                            rpn_post_nms_top_n=50)
+    return CaterDetector(config, device="cpu", seed=3), draw_frames(make_scene(5, 4), seed=1)
+
+
+def test_detect_video_makes_its_root_device_spans_and_counts(monkeypatch):
+    """One video of 2 chunks: the root `objperm.detect.video`; under it the
+    video's one copy in, each chunk's three device spans, and the outputs'
+    copy out, and no span below them; NMS twice a chunk; the root's
+    `host_syncs` delta is the copies alone. Nothing blocks on the CPU, so
+    `h2d` and `d2h` count here as on a card; NMS waits for nothing on a card
+    (`csrc/nms.cu`) and counts nothing here either."""
+    from objectpermanence_tpu_torch.models.detector import rpn
+    from objectpermanence_tpu_torch.ops import nms
+
+    def h2d(source, device):
+        trace.host_syncs += 1
+        return trace.span("objperm.host.h2d")
+
+    def d2h(*tensors):
+        trace.host_syncs += len(tensors)
+        return trace.span("objperm.host.d2h")
+
+    counts = {"calls": 0}
+    plain_mask = nms.nms_mask
+
+    def counted_mask(*args, **kwargs):
+        counts["calls"] += 1
+        return plain_mask(*args, **kwargs)
+
+    monkeypatch.setattr(trace, "h2d", h2d)
+    monkeypatch.setattr(trace, "d2h", d2h)
+    monkeypatch.setattr(nms, "nms_mask", counted_mask)
+    monkeypatch.setattr(rpn, "nms_mask", counted_mask)
+    detector, frames = _tiny_detector()
+    before = trace.host_syncs
+    with trace.recording():
+        detector.detect_video(frames, batch_size=2)
+    kept = trace.spans()
+    roots = [s for s in kept if s.parent is None]
+    assert [r.name for r in roots] == ["objperm.detect.video"]
+    root = roots[0]
+    assert root.device_ms is None and all(s.root == root.id for s in kept)
+    children = sorted((s for s in kept if s.parent == root.id), key=lambda s: s.start_ns)
+    chunk = ["objperm.detector.backbone", "objperm.detector.proposals", "objperm.detector.heads"]
+    assert [s.name for s in children] == ["objperm.host.h2d", *chunk * 2, "objperm.host.d2h"]
+    assert len(kept) == 1 + len(children)
+    for span in children[1:7]:
+        assert span.device_ms == span.host_ms > 0
+    assert counts["calls"] == 4
+    copies = 1 + 4  # the video's frames in; boxes, labels, scores and valid out
+    assert root.syncs == trace.host_syncs - before == copies
+
+
+def test_off_detect_video_keeps_no_span(monkeypatch):
+    _no_record_function(monkeypatch)
+    detector, frames = _tiny_detector()
+    before = trace.host_syncs
+    detector.detect_video(frames, batch_size=2)
+    assert trace.spans() == [] and trace.host_syncs == before  # nothing blocks on the CPU
