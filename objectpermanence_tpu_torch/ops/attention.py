@@ -9,6 +9,9 @@ copies them as they are: `attn.w_in (D, 3, heads, head_dim)`, `attn.b_in
 torch.nn.TransformerEncoderLayer's: ReLU, ff 2048, dropout 0.1, LayerNorm
 eps 1e-5. The JAX package wrote no Pallas kernel for attention: the
 sequences are 15 tokens, so this is plain tensor code on every device.
+Its products with a bias (the in- and out-projections, `ff1` with its ReLU,
+`ff2`) run `ops/linear.py::linear_bias`: outside autograd the bias and the
+ReLU are added in the product's epilogue.
 
 Dropout runs only in train mode and draws its mask from the `generator`
 the caller passes (on the tensors' device); in eval mode it is the
@@ -32,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from objectpermanence_tpu_torch.ops.linear import Linear
+from objectpermanence_tpu_torch.ops.linear import Linear, linear_bias
 from objectpermanence_tpu_torch.utils import trace
 
 DROPOUT_RATE = 0.1
@@ -87,7 +90,7 @@ class MultiheadSelfAttention(nn.Module):
         of slot `slot`'s rows alone, `(N, D)`."""
         n, length, dim = x.shape
         num_heads, head_dim = self.w_in.shape[2], self.w_in.shape[3]
-        qkv = torch.matmul(x, self.w_in.reshape(dim, 3 * dim)) + self.b_in.reshape(3 * dim)
+        qkv = linear_bias(x, self.w_in.reshape(dim, 3 * dim), self.b_in.reshape(3 * dim))
         q, k, v = (t.reshape(n, length, num_heads, head_dim).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim), dim=-1)
@@ -117,7 +120,7 @@ class EncoderLayer(nn.Module):
 
         residual = x if slot is None else x[:, slot]
         x = self.norm1(residual + drop(self.attn(x, slot)))
-        ff = self.ff2(drop(torch.relu(self.ff1(x))))
+        ff = self.ff2(drop(linear_bias(x, self.ff1.w, self.ff1.b, relu=True)))
         return self.norm2(x + drop(ff))
 
 

@@ -77,21 +77,22 @@ CONFIG = {"boxes_features_dim": 16, "num_attention_heads": 2, "num_attention_lay
 
 @pytest.mark.parametrize("compat", [False, True], ids=["per_frame", "reference_compat"])
 def test_forward_layers_cuts_the_last_layer_to_slot_0(compat):
-    """Hooks on each layer's out-projection and `ff1`: the first layer's see
+    """Hooks on each layer's out-projection and `ff2`: the first layer's see
     every token; the last layer's see the B*T snitch rows on the per-frame
     path, and every token under `reference_compat` (which keeps the full
-    form)."""
+    form). Shapes are read without their feature width."""
     batch, frames = 3, 7
     model = TransformerLSTM(CONFIG, torch.Generator().manual_seed(0), reference_compat=compat)
     seen = []
-    hooks = [module.register_forward_hook(lambda m, args, out: seen.append(tuple(args[0].shape)))
-             for layer in model.encoder for module in (layer.attn.out, layer.ff1)]
+    hooks = [module.register_forward_hook(
+                 lambda m, args, out: seen.append(tuple(args[0].shape[:-1])))
+             for layer in model.encoder for module in (layer.attn.out, layer.ff2)]
     boxes = torch.rand(batch, frames, TOKENS, 5, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         y = model.eval().forward_layers(boxes)
     for hook in hooks:
         hook.remove()
     assert y.shape == (batch, frames, 4)
-    tokens = (TOKENS, batch * frames, 16) if compat else (batch * frames, TOKENS, 16)
-    rows = tokens if compat else (batch * frames, 16)
+    tokens = (TOKENS, batch * frames) if compat else (batch * frames, TOKENS)
+    rows = tokens if compat else (batch * frames,)
     assert seen == [tokens, tokens, rows, rows]

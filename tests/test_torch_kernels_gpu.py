@@ -4,7 +4,8 @@ forward-only kernels (K2, K3, K4), multilevel RoIAlign (K7, and K5/K6, its
 one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
 the bf16 modes of K1, K7, K8 and K9; the five reasoning models beside OPNet
 on the LSTM kernels, transformer_lstm's one-slot encoder against its full
-form, `StackedLSTM`'s launches, `bench_torch.py` and the detector's spans
+form and its products with the bias and ReLU in the epilogue against the
+separate passes, `StackedLSTM`'s launches, `bench_torch.py` and the detector's spans
 and blocking reads; the
 SiamRPN tracker (library convs, no kernel of the port) on the card against
 the CPU.
@@ -542,6 +543,59 @@ def test_transformer_one_slot_encoder_matches_full_rows(mode):
     for key, want_grad in grads[1].items():
         limit = 1e-5 * max(1.0, want_grad.abs().max().item())
         assert (grads[0][key] - want_grad).abs().max().item() <= limit, key
+
+
+def _composed(x, w, b, relu=False):
+    """The products as they ran before their epilogues took the bias:
+    `matmul`, then `+ b`, then the ReLU."""
+    y = torch.matmul(x, w) + b
+    return torch.relu(y) if relu else y
+
+
+@pytest.mark.gpu
+def test_transformer_encoder_runs_bias_and_relu_in_the_products(monkeypatch):
+    """transformer_lstm at its shipped widths on 8 served videos, eval, TF32
+    off: `forward_layers` with each biased product's bias (and ff1's ReLU)
+    in its epilogue against the `matmul` + `b` (+ `relu`) composition within
+    1e-5 x max |composition's|; `linear_bias.launches` reads 8 a forward (QKV,
+    out, ff1, ff2 in each of 2 layers); the encoder, profiled, launches no
+    ReLU kernel and no add kernels but its 4 residual adds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.ops import attention, linear
+    device = _card()
+    config = load_model_config("transformer_lstm")
+    model = get_model_spec("transformer_lstm", config).build(
+        config, torch.Generator().manual_seed(3))
+    draw = torch.Generator().manual_seed(4)
+    with torch.no_grad():  # biases away from their zero inits
+        for name, param in model.named_parameters():
+            if name.endswith((".b", "b_in")):
+                param.uniform_(-0.5, 0.5, generator=draw)
+    model = model.to(device).eval()
+    boxes, _, _ = _inputs(8, device)
+    boxes = boxes[..., :5].contiguous()
+    with torch.no_grad():
+        before = linear.linear_bias.launches
+        got = model.forward_layers(boxes)
+        assert linear.linear_bias.launches - before == 8
+        with monkeypatch.context() as patch:
+            patch.setattr(attention, "linear_bias", _composed)
+            patch.setattr(linear, "linear_bias", _composed)
+            want = model.forward_layers(boxes)
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        feats = torch.relu(model.box_proj(boxes)).reshape(8 * 300, 15, -1)
+        model.encoder(feats, slot=0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.encoder(feats, slot=0)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert sum("gemm" in n.lower() for n in names) >= 8, names
+    elementwise = [n for n in names if "gemm" not in n.lower()]
+    assert not [n for n in elementwise if "clamp" in n or "relu" in n.lower()], elementwise
+    assert sum("CUDAFunctor_add" in n for n in elementwise) == 4, elementwise
 
 
 @pytest.mark.gpu
