@@ -29,6 +29,7 @@ from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
 from objectpermanence_tpu_torch.models.convert import params_from_jax
 from objectpermanence_tpu_torch.ops import homography
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 VIDEOS, FRAMES = 8, 300
 MASK_FLAGS = ("containment_only_static", "containment_with_movements", "visibility_gt_0",

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_lane import ONE_THREAD_ENV
+
 REPO = Path(__file__).resolve().parent.parent
 # bench.py's result keys, read from its source (importing it would start JAX)
 BENCH_KEYS = re.findall(r'^\s+"(\w+)":', (REPO / "bench.py").read_text().split(
@@ -24,7 +26,7 @@ def _bench(*args):
             "assert not [m for m in sys.modules if m.startswith('objectpermanence_tpu.')]")
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=300,
-                          env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": "", **ONE_THREAD_ENV})
 
 
 def test_bench_prints_one_json_line_with_bench_keys_on_cpu():

@@ -15,6 +15,7 @@ from objectpermanence_tpu.ops.boxes import FRAME_SHAPES as JAX_FRAME_SHAPES
 from objectpermanence_tpu.ops.boxes import denormalize_boxes as jax_denormalize_boxes
 from objectpermanence_tpu.ops.boxes import iou_xyxy as jax_iou_xyxy
 from objectpermanence_tpu_torch.ops.boxes import FRAME_SHAPES, denormalize_boxes, iou_xyxy
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 def _boxes(rng, count):

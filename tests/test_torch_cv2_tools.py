@@ -19,6 +19,7 @@ from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene, wr
 from objectpermanence_tpu_torch.infer import detector_tools
 from objectpermanence_tpu_torch.infer.reasoning import reasoning_inference_main, write_debug_video
 from objectpermanence_tpu_torch.utils import video_checks
+from torch_lane import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

@@ -53,17 +53,10 @@ from torch_dp_workers import (
     BATCH, FRAMES, FSDP_CFG, LR, MODELS, NARROW, dp_suite, fsdp_batch, run_steps, spawn,
     step_batches,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 GRAD_FLOOR = 1e-7
 TRAIN_VIDEOS, DEV_VIDEOS = 11, 8   # batches of 8: the second holds 3 real rows
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_init(name, seed):

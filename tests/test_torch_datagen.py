@@ -30,6 +30,7 @@ from objectpermanence_tpu_torch.datagen.perfect_perception import PerfectPercept
 from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.ops import homography
 from objectpermanence_tpu_torch.train.loop import training_main
+from torch_lane import one_torch_thread  # noqa: F401
 
 pytest.importorskip("cv2")
 

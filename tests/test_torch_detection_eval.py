@@ -20,6 +20,7 @@ from objectpermanence_tpu_torch.data.detection_dataset import (
     MAX_GT_BOXES, DetectionDataset, parse_annotations_csv,
 )
 from objectpermanence_tpu_torch.data.fixtures import write_detection_fixture
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 def _random_set(rng, images=6, classes=(3, 7, 140)):

@@ -38,6 +38,7 @@ from objectpermanence_tpu_torch.models.detector.convert import (
 from objectpermanence_tpu_torch.models.detector.roi_heads import postprocess_detections
 from objectpermanence_tpu_torch.models.detector.rpn import generate_proposals
 from objectpermanence_tpu_torch.ops.nms import NEG_INF
+from torch_lane import one_torch_thread  # noqa: F401
 
 SCORE_KEEP = 0.8  # preprocess's cut
 CONFIGS = {

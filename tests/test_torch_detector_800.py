@@ -53,21 +53,13 @@ from objectpermanence_tpu_torch.models.detector.convert import state_dict_from_j
 from objectpermanence_tpu_torch.ops import roi_align_window
 from objectpermanence_tpu_torch.ops.roi_align_kernel import roi_align_windowed
 from objectpermanence_tpu_torch.train.detector_loop import evaluate_detector
+from torch_lane import one_torch_thread  # noqa: F401
 
 TINY_800 = dict(backbone_layers=(1, 1, 1, 1), backbone_width=16, fpn_channels=32,
                 backbone_norm="group", rpn_pre_nms_top_n=200, rpn_post_nms_top_n=100,
                 detections_per_img=20, roi_backend="windowed")
 FRAMES = 4
 SCORE_KEEP = 0.8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _frames():

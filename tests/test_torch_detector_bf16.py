@@ -37,22 +37,13 @@ from objectpermanence_tpu_torch.models.detector import detector as det
 from objectpermanence_tpu_torch.models.detector.convert import state_dict_from_jax
 from objectpermanence_tpu_torch.models.detector.roi_heads import RoIHeads
 from objectpermanence_tpu_torch.models.detector.rpn import RPNHead
+from torch_lane import one_torch_thread  # noqa: F401
 
 TINY = dict(image_hw=(120, 160), min_size=128, max_size=256, backbone_layers=(1, 1, 1, 1),
             backbone_width=16, fpn_channels=32, rpn_pre_nms_top_n=200, rpn_post_nms_top_n=100,
             detections_per_img=20, compute_dtype="bfloat16")
 PYRAMID_RTOL = {"frozen": 1e-2, "group": 5e-2}
 HEAD_RTOL, ROI_RTOL, LOGIT_RTOL = 1e-3, 1e-3, 1e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: the TINY net's small ops stall torch's
-    thread pool when the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _f32(a):

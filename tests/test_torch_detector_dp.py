@@ -28,7 +28,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
 
 from objectpermanence_tpu.models.detector import detector as jdet
 from objectpermanence_tpu.models.detector import training as jtr
@@ -45,17 +44,10 @@ from torch_dp_workers import (
     DET_BATCH, DET_DECAY, DET_LOOP, DET_LR, DET_MOMENTUM, DET_NORMS, DET_TINY, DET_WARMUP,
     detector_dp, detector_step_batch, detector_steps, spawn,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 LOSS_RTOL, PARAM_ATOL = 1e-5, 1e-6
 STEPS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _tiny_dataset(root):

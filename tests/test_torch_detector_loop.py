@@ -15,29 +15,19 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from objectpermanence_tpu_torch.data.detection_dataset import DetectionDataset
 from objectpermanence_tpu_torch.data.fixtures import write_detection_fixture
 from objectpermanence_tpu_torch.models.detector.detector import CaterDetector, DetectorConfig
 from objectpermanence_tpu_torch.train.detector_loop import evaluate_detector, train_detector
 from objectpermanence_tpu_torch.utils.checkpoint import load_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 CONFIG = dict(min_size=240, max_size=320, backbone_layers=(1, 1, 1, 1), backbone_width=16,
               fpn_channels=32, rpn_pre_nms_top_n=200, rpn_post_nms_top_n=100,
               detections_per_img=20)
 TRAIN = dict(batch_size=3, learning_rate=1e-2, warmup_iters=2, print_step=2, seed=1,
              device="cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Training on one thread: the narrow net's small ops stall torch's
-    thread pool when the lane's workers share the cores (40x slower)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

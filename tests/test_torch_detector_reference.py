@@ -20,6 +20,7 @@ from benchmark.models import faster_rcnn_r50_fpn as adapter
 from benchmark.reference import faster_rcnn_r50_fpn as reference
 from objectpermanence_tpu_torch.models.detector import detector as port
 from objectpermanence_tpu_torch.ops.nms import NEG_INF, batched_class_nms, nms_mask
+from torch_lane import one_torch_thread  # noqa: F401
 
 CELL = "faster_rcnn_r50_fpn.preprocess_c30"
 CONFIG = json.loads((Path(harness.BENCH_DIR) / "configs" / "faster_rcnn_r50_fpn.json").read_text())
@@ -29,16 +30,7 @@ NEW_METRICS = ["host_syncs_per_call.preprocess", "backbone_ms_per_call.preproces
 
 
 @pytest.fixture(scope="module")
-def one_thread():
-    """The full-width net on one thread: the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-@pytest.fixture(scope="module")
-def stages(one_thread):
+def stages():
     """Both sides' stages on 2 frames of two cache videos, with the cell's
     weights (background bias calibrated on those frames)."""
     with np.load(harness.CACHE) as blob:
@@ -153,7 +145,7 @@ def test_the_flops_are_counted_layer_by_layer():
     assert len(adapter.leaves(CONFIG)) == len(port.Detector(port.DetectorConfig()).state_dict())
 
 
-def test_the_kind_runs_whole_on_the_cpu(one_thread):
+def test_the_kind_runs_whole_on_the_cpu():
     manifest = harness.load_json(harness.MANIFEST)
     tiny = {**CONFIG, "backbone_layers": [1, 1, 1, 1], "backbone_width": 16, "fpn_channels": 32,
             "preprocess_config": {**CONFIG["preprocess_config"], "batch_size": 2}}

@@ -56,6 +56,7 @@ from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_experiment_helpers import (
     files, jax_config, jax_init, jax_main, run_quiet, same_detector_start,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 WIDTHS = dict(backbone_layers=(1, 1, 1, 1), backbone_width=16, fpn_channels=32,
               rpn_pre_nms_top_n=100, rpn_post_nms_top_n=60, detections_per_img=16,
@@ -69,16 +70,6 @@ FRAMES, SAMPLES, EPOCHS = 60, 2, 1
 LOSS_RTOL, MAP_ATOL = 1e-5, 1e-6
 REPORT_KEYS = {"geometry", "epochs", "batch", "compute_dtype", "best_dev_map", "test",
                "train_seconds", "train_contract", "eval_contract", "history", "checkpoint"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port on one thread: the TINY net's small ops stall torch's thread
-    pool when the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _tiny(config_cls, geometries=GEOMETRY):

@@ -52,6 +52,7 @@ from objectpermanence_tpu_torch.models.detector import detector as det
 from objectpermanence_tpu_torch.models.detector import training as tr
 from objectpermanence_tpu_torch.models.detector.convert import state_dict_from_jax
 from objectpermanence_tpu_torch.train.detector_loop import warmup_schedule
+from torch_lane import one_torch_thread  # noqa: F401
 
 TINY = dict(image_hw=(120, 160), min_size=128, max_size=256, backbone_layers=(1, 1, 1, 1),
             backbone_width=16, fpn_channels=32, rpn_pre_nms_top_n=200, rpn_post_nms_top_n=100,
@@ -61,16 +62,6 @@ FULL = dict(min_size=240, max_size=320, backbone_norm="group", rpn_pre_nms_top_n
 LR, MOMENTUM, DECAY, WARMUP = 5e-3, 0.9, 5e-4, 2
 LOSS_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-6
 FULL_GRAD_RTOL = 1e-2  # float32's own distance from the exact gradient at full width
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: the TINY net's small ops stall torch's
-    thread pool when the lane's workers share the cores (25x slower)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _draws(key, batch, num_anchors, num_rois):

@@ -42,20 +42,12 @@ from objectpermanence_tpu_torch.train.detector_loop import train_detector
 from objectpermanence_tpu_torch.utils.checkpoint import load_params
 from test_torch_detector_800 import TINY_800, _interpret
 from test_torch_detector_train import _draws, _frames, _rel
+from torch_lane import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 F32_GRAD_RTOL = 5e-3
 BF16_NORM_RTOL, BF16_MIN_COSINE, BF16_GRAD_RTOL = 0.1, 0.9, 0.3
 KEY_SEED = 600
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class LossCase:

@@ -19,20 +19,11 @@ epoch keeps float32 masters in its checkpoints.
 """
 
 import pytest
-import torch
 
 from test_torch_detector_train_800 import (
     check_800px_epoch, check_gradients, check_loss_parts, loss_case,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("backend", ["windowed", "auto"])

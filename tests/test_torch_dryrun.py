@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from objectpermanence_tpu_torch.parallel.dryrun import dryrun_multichip
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 def test_dryrun_on_four_cpu_ranks_prints_the_ok_line(capsys):

@@ -16,6 +16,7 @@ import torch
 
 from objectpermanence_tpu_torch.models.reasoning import TransformerLSTM
 from objectpermanence_tpu_torch.ops.attention import Encoder, dropout
+from torch_lane import one_torch_thread  # noqa: F401
 
 # (features, heads, feed-forward, sequences): a small layer, and the
 # published transformer_lstm widths over 15 object tokens

@@ -47,6 +47,7 @@ from objectpermanence_tpu_torch.experiments import (
 from objectpermanence_tpu_torch.models.convert import params_from_jax
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_experiment_helpers import files, from_jax_init, jax_main, run_quiet
+from torch_lane import one_torch_thread  # noqa: F401
 
 NARROW = {"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 16,
           "videos_hidden_dim": 24}

@@ -28,6 +28,7 @@ from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_dp_workers import (
     MOE_EXPERTS, MOE_HIDDEN, MOE_IN, MOE_OUT, ep_suite, start,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 LIMITS = dict(rtol=2e-5, atol=2e-6)
 BATCH, FRAMES = 8, 10

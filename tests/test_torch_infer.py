@@ -32,6 +32,7 @@ from objectpermanence_tpu_torch.infer.reasoning import reasoning_inference_main
 from objectpermanence_tpu_torch.models.convert import params_from_jax
 from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 SMALL = {"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 32,
          "videos_hidden_dim": 64}

@@ -13,6 +13,8 @@ import sys
 import textwrap
 from pathlib import Path
 
+from torch_lane import ONE_THREAD_ENV
+
 REPO = Path(__file__).resolve().parent.parent
 
 _PRELUDE = """
@@ -26,12 +28,11 @@ sys.path.insert(0, {repo!r})
 
 
 def _run(body: str, tmp_path) -> str:
-    """`body` in a fresh interpreter, on one CPU thread: with more, torch's
-    thread pool stalls when the lane's workers share the cores."""
+    """`body` in a fresh interpreter, on one CPU thread (`torch_lane.py`)."""
     code = _PRELUDE.format(repo=str(REPO)) + textwrap.dedent(body)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=tmp_path, timeout=300,
-                          env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": "", **ONE_THREAD_ENV})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return proc.stdout
 

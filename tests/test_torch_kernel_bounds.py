@@ -11,6 +11,7 @@ import chip_smoke
 from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES, assign_levels
 from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
 from objectpermanence_tpu_torch.ops.roi_align import _align
+from torch_lane import one_torch_thread  # noqa: F401
 
 SHAPES = [(200, 272), (100, 136), (50, 68), (25, 34)]   # the 800 px pyramid
 

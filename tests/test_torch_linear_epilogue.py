@@ -14,6 +14,7 @@ import torch
 from objectpermanence_tpu_torch.models.reasoning import TransformerLSTM
 from objectpermanence_tpu_torch.ops import attention, linear
 from objectpermanence_tpu_torch.ops.linear import Linear, linear_bias
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 def _composed(x, w, b, relu=False):

@@ -15,6 +15,7 @@ from objectpermanence_tpu.ops.attention import linear_apply
 from objectpermanence_tpu.ops.lstm import lstm_apply
 from objectpermanence_tpu_torch.ops.linear import Linear
 from objectpermanence_tpu_torch.ops.lstm import LSTM, lstm_cell, lstm_forward
+from torch_lane import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -24,6 +24,7 @@ from objectpermanence_tpu_torch.ops.lstm import LSTM
 from objectpermanence_tpu_torch.ops.lstm_scan import (
     lstm_scan_backward, lstm_scan_forward, lstm_scan_fused, lstm_scan_hs, lstm_scan_pallas,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-6
 ATOL_WEIGHT_GRAD = 1e-5

@@ -35,6 +35,7 @@ import objectpermanence_tpu.ops.pallas_scan as ps
 from objectpermanence_tpu_torch.ops.lstm_scan import (
     K_SPLITS, THREADS, TILES, forward_launch_plan, lstm_scan_forward_reference,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 SMS, SMEM = 132, 232448
 WIDTHS = [16, 24, 132, 256, 260, 512, 1024]

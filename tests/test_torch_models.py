@@ -58,6 +58,7 @@ from objectpermanence_tpu_torch.ops.attention import EncoderLayer, dropout
 from objectpermanence_tpu_torch.ops.lstm import StackedLSTM
 from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
 from objectpermanence_tpu_torch.utils.checkpoint import trained_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 B, T = 4, 24
 CONFIGS = {

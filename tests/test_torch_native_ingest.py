@@ -15,6 +15,7 @@ from objectpermanence_tpu_torch.data import ingest
 from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
 from objectpermanence_tpu_torch.native import build
 from objectpermanence_tpu_torch.vocab import IS_CONE
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 def _scene_to_raw(scene):

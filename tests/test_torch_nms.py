@@ -16,6 +16,7 @@ from objectpermanence_tpu.ops import nms as jax_nms
 from objectpermanence_tpu.ops.boxes import pairwise_iou_xyxy as jax_pairwise_iou
 from objectpermanence_tpu_torch.ops import nms
 from objectpermanence_tpu_torch.ops.boxes import pairwise_iou_xyxy
+from torch_lane import one_torch_thread  # noqa: F401
 
 
 def _boxes(rng, n, clusters=4):

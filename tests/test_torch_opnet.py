@@ -31,6 +31,7 @@ from objectpermanence_tpu_torch.models.reasoning import OPNet
 from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.ops.opnet_fused import opnet_fused_forward
 from objectpermanence_tpu_torch.utils.checkpoint import load_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FLAGSHIP_NPZ = REPO / "objectpermanence_tpu_torch" / "assets" / "opnet_19-08-26_0.514.npz"

@@ -41,6 +41,7 @@ from objectpermanence_tpu_torch.ops.opnet_fused import opnet_forward_reference, 
 from test_torch_opnet import (
     FULL, NARROW, _bench_boxes, _flagship, _model, _random_boxes, _random_params, _unflatten,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 LOGITS_RTOL = 2e-6

@@ -49,6 +49,7 @@ from objectpermanence_tpu_torch.parallel.pipeline import (
 )
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_dp_workers import GENERIC_WIDTHS, LR, NARROW, mp_batch, pp_suite, start
+from torch_lane import one_torch_thread  # noqa: F401
 
 GRAD_FLOOR = 1e-7
 PIPES = [2, 4]

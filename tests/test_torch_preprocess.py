@@ -25,6 +25,7 @@ from objectpermanence_tpu_torch.data.fixtures import draw_frames, make_scene
 from objectpermanence_tpu_torch.infer import preprocess
 from objectpermanence_tpu_torch.models.detector.convert import state_dict_from_jax
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 FRAMES = 6
 TINY = dict(image_hw=[120, 160], min_size=128, max_size=256, backbone_layers=[1, 1, 1, 1],

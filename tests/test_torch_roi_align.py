@@ -37,6 +37,7 @@ from objectpermanence_tpu.ops import roi_align as jax_roi
 from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES, assign_levels
 from objectpermanence_tpu_torch.ops import roi_align_kernel as kernel
 from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align, roi_align
+from torch_lane import one_torch_thread  # noqa: F401
 
 SHAPES = [(16, 20), (8, 10), (4, 5), (2, 3)]  # P2..P5 of a 64 x 80 image
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -27,6 +27,7 @@ import torch
 from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES, assign_levels
 from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
 from objectpermanence_tpu_torch.ops.roi_align import _geometry, multilevel_roi_align_backward
+from torch_lane import one_torch_thread  # noqa: F401
 
 CHANNELS = [1, 64, 96, 200, 256, 512]
 NATIVE = [(64, 80), (32, 40), (16, 20), (8, 10)]

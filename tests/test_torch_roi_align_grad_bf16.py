@@ -47,6 +47,7 @@ from objectpermanence_tpu_torch.models.detector import detector as det
 from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
 from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
 from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
+from torch_lane import one_torch_thread  # noqa: F401
 
 BF16_GRAD_RTOL = 1e-2   # x max |ref| per level: JAX rounds weights or shares to bf16
 F32_GRAD_RTOL = 1e-5    # x max |ref| per level: float32 sums in another order

@@ -20,6 +20,7 @@ from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES, as
 from objectpermanence_tpu_torch.ops import roi_align_kernel as rk
 from objectpermanence_tpu_torch.ops.roi_align import _geometry
 from objectpermanence_tpu_torch.ops.roi_align_window import Window
+from torch_lane import one_torch_thread  # noqa: F401
 
 CHANNELS = [1, 64, 96, 200, 256, 512]
 NATIVE = [(64, 80), (32, 40), (16, 20), (8, 10)]

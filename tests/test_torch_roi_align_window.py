@@ -39,6 +39,7 @@ from objectpermanence_tpu_torch.models.detector.roi_heads import ROI_STRIDES
 from objectpermanence_tpu_torch.ops import roi_align_kernel as kernel
 from objectpermanence_tpu_torch.ops import roi_align_window as window_lib
 from objectpermanence_tpu_torch.ops.roi_align import multilevel_roi_align
+from torch_lane import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)

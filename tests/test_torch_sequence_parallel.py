@@ -32,6 +32,7 @@ from objectpermanence_tpu.parallel.sequence import (
 from objectpermanence_tpu_torch.models.convert import params_from_jax
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_dp_workers import MP_BATCH, MP_FRAMES, NARROW, TRANSFORMER, mp_batch, sp_suite, start
+from torch_lane import one_torch_thread  # noqa: F401
 
 FORWARD = dict(rtol=2e-5, atol=2e-6)
 

@@ -40,6 +40,7 @@ from objectpermanence_tpu_torch.models.convert import (
 )
 from objectpermanence_tpu_torch.train.siam_loop import calibrate_batch_norm
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
+from torch_lane import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
@@ -47,16 +48,6 @@ NET_RTOL = 1e-4
 STATE_PX, SCORE_TOL, TIE_PSCORE = 0.1, 1e-4, 1e-4
 RATIOS, SCALES = (0.33, 0.5, 1, 2, 3), (8,)
 FRAMES = 60
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: torch's thread pool stalls when the
-    lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def fixture_crops(frames, count=4):

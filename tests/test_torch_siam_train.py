@@ -50,20 +50,11 @@ from objectpermanence_tpu_torch.datagen import perfect_perception
 from objectpermanence_tpu_torch.models import siam
 from objectpermanence_tpu_torch.models.convert import siam_params_from_jax
 from objectpermanence_tpu_torch.train import siam_loop
+from torch_lane import one_torch_thread  # noqa: F401
 
 RTOL = 1e-4
 LOSS_RTOL, STEP_RTOL, LATER_LOSS_RTOL, SCHEDULE_RTOL = 1e-5, 1e-5, 1e-3, 1e-6
 BATCH = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one thread: torch's thread pool stalls when the
-    lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def close(got, want, rtol=RTOL):

@@ -38,6 +38,7 @@ from objectpermanence_tpu_torch.parallel.dryrun import OPNET_CONFIG
 from objectpermanence_tpu_torch.parallel.sharding import tp_param_shardings
 from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_dp_workers import LR, MP_STEPS, NARROW, mp_batch, start, tp_steps
+from torch_lane import one_torch_thread  # noqa: F401
 
 GRAD_FLOOR = 1e-7
 CONFIGS = {"narrow": NARROW, "flagship": OPNET_CONFIG}

@@ -17,6 +17,7 @@ import numpy as np
 
 from objectpermanence_tpu_torch.__main__ import main as port_main
 from objectpermanence_tpu_torch.data.fixtures import write_fixture_dataset
+from torch_lane import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 NARROW = {"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 16,
@@ -54,7 +55,7 @@ def test_torchrun_training_equals_one_process(tmp_path):
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "objectpermanence_tpu_torch", *args, str(_config(tmp_path, "world2", splits))],
         cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "OMP_NUM_THREADS": "1"})
+        env={**os.environ, **ONE_THREAD_ENV})
     assert launched.returncode == 0, launched.stdout[-3000:] + launched.stderr[-3000:]
     assert port_main(args + [str(_config(tmp_path, "world1", splits))]) == 0
 

@@ -22,6 +22,7 @@ from objectpermanence_tpu_torch.infer.reasoning import make_predict_step
 from objectpermanence_tpu_torch.models.registry import get_model_spec
 from objectpermanence_tpu_torch.train.loop import DeviceDataset, make_optimizer, make_train_step
 from objectpermanence_tpu_torch.utils import trace
+from torch_lane import kept_torch_threads, one_torch_thread  # noqa: F401
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 NEW_METRICS = ["host_own_ms_per_call", "host_syncs_per_call", "encoder_ms_per_call",
@@ -34,12 +35,11 @@ ACCEPTED = ["host_ms_per_call.serve", "host_ms_per_call.train", "mfu.serve", "mf
 
 def _tiny():
     """`benchmark/tests/conftest.py`'s small configurations and mixes."""
-    threads = torch.get_num_threads()
     spec = importlib.util.spec_from_file_location(
         "benchmark_tests_conftest", REPO_ROOT / "benchmark" / "tests" / "conftest.py")
     module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    torch.set_num_threads(threads)  # that file sets its own process's threads
+    with kept_torch_threads():  # that file sets its own process's threads
+        spec.loader.exec_module(module)
     return module.TINY_CONFIGS, module.TINY_MIXES
 
 

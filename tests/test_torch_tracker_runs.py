@@ -48,18 +48,11 @@ from objectpermanence_tpu_torch.infer.trackers import read_video_bgr
 from objectpermanence_tpu_torch.models.convert import siam_params_from_jax
 from objectpermanence_tpu_torch.models.siam import build_siam_reasoner
 from torch_experiment_helpers import files, jax_main, run_quiet
+from torch_lane import one_torch_thread  # noqa: F401
 
 VIDEOS, FRAMES = 2, 24
 PX_SHARE, STATE_PX = 1e-2, 0.1
 OPE_KEYS = {"success_auc", "precision_20px", "mean_iou"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from objectpermanence_tpu_torch.infer import trackers
 from objectpermanence_tpu_torch.models import heuristic
 from objectpermanence_tpu_torch.models.convert import siam_params_from_jax
 from objectpermanence_tpu_torch.vocab import large_cone_indices
+from torch_lane import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
@@ -42,14 +43,6 @@ REPO = Path(__file__).resolve().parent.parent
 VIDEOS, SEED = 4, 5
 TRACK_FRAMES = 60
 PX_SHARE = 1e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +93,7 @@ def test_cli_heuristic_bb_json_byte_for_byte(data, tmp_path):
     _, pred_dir, labels_dir = data
     config = tmp_path / "inference.json"
     config.write_text(json.dumps({"sample_dir": str(pred_dir), "labels_dir": str(labels_dir)}))
-    env = {**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "", **ONE_THREAD_ENV}
     proc = subprocess.run([sys.executable, "-m", "objectpermanence_tpu_torch", "inference",
                            "--model_type", "detector_heuristic", "--results_dir",
                            str(tmp_path / "port"), "--inference_config", str(config)],

@@ -51,6 +51,7 @@ from objectpermanence_tpu_torch.train.plateau import ReduceLROnPlateau
 from objectpermanence_tpu_torch.utils.checkpoint import (
     latest_checkpoint, restore_train_state, save_train_state,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 NARROW = {"object_to_track_pred_dim": 15, "object_to_track_hidden_dim": 16,
           "videos_hidden_dim": 24}

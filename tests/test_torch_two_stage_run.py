@@ -40,7 +40,6 @@ import jax
 import numpy as np
 import pandas as pd
 import pytest
-import torch
 
 import scripts.two_stage_run as jax_ts
 from objectpermanence_tpu.infer import preprocess as jax_preprocess
@@ -58,6 +57,7 @@ from objectpermanence_tpu_torch.utils.checkpoint import save_params
 from torch_experiment_helpers import (
     files, from_jax_init, jax_config, jax_init, run_quiet, same_detector_start,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 TINY = dict(min_size=60, max_size=80, backbone_layers=(1, 1, 1, 1), backbone_width=16,
             fpn_channels=32, rpn_pre_nms_top_n=100, rpn_post_nms_top_n=60,
@@ -71,16 +71,6 @@ REASONING = {"train": (8, 51), "dev": (2, 52), "test": (2, 53)}
 DET_BATCH, DET_SAMPLES, EPOCHS = 2, 2, 2
 LOSS_RTOL, MAP_ATOL, BOX_PX, SCORE_EPS, DIFFER_SHARE = 1e-5, 1e-6, 0.25, 1e-4, 2e-2
 PREPROCESS_FRAMES = 50
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port on one thread: the TINY net's small ops stall torch's thread
-    pool when the lane's workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _source(base, splits):

@@ -20,6 +20,7 @@ from objectpermanence_tpu_torch.models.registry import init_model
 from objectpermanence_tpu_torch.utils.checkpoint import (
     best_params_checkpoint, load_params, save_params,
 )
+from torch_lane import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FLAGSHIP_ORBAX = REPO / "bench_data" / "checkpoints" / "opnet" / "19-08-26_0.514"

@@ -58,7 +58,7 @@ def fsdp_batch(seed):
 
 
 def _rank_main(rank, fn, world, rendezvous, args):
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)  # the policy of `torch_lane.py`, which a rank does not import
     dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank,
                             world_size=world)
     try:
