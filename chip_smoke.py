@@ -5,12 +5,14 @@
 Builds the port's CUDA kernels from this checkout (`opnet_fused`: K1, in
 float32 and with bf16 operands; `lstm_scan`: K2, K3, K4; `roi_align`: K7,
 with K5/K6 as its one-image entries, K8, its backward (bf16 dF too), and K9,
-the windowed RoIAlign; K7 and K9 in float32 and bfloat16), holds each against
-its plain PyTorch version at the main paths' full-width shapes, holds the five
+the windowed RoIAlign; K7 and K9 in float32 and bfloat16; `attention_core`,
+transformer_lstm's attention core), holds each against its plain PyTorch
+version at the main paths' full-width shapes, holds the five
 other reasoning models (`baseline_lstm`, `non_linear_lstm`, `transformer_lstm`,
 also with `reference_compat`, `opnet_lstm_mlp`, `opnet_moe`) at their shipped
-widths against the CPU's plain loops, forward (K4) and one train step's
-gradients (K2/K3), drives the main paths (OPNet inference over ingested
+widths against the CPU's plain loops, forward (K4, and transformer_lstm's
+attention core but with `reference_compat`) and one train step's gradients
+(K2/K3), drives the main paths (OPNet inference over ingested
 detections, in float32 through the CLI and with bf16 operands through
 `make_predict_step`, then the CLI's `analysis` of its predictions; OPNet
 training on a fixture dataset followed by inference and `cater_inference`
@@ -220,10 +222,11 @@ def device_kernel_ms(prof):
 
 
 def reset_launches(by_dtype=False):
-    """Every kernel wrapper's launch count to 0; returns a reader of them.
-    With `by_dtype`, K7, K8 and K9 read their float32 launches and
+    """Every kernel wrapper's launch count to 0; returns a reader of them
+    ("AC" is transformer_lstm's attention core). With `by_dtype`, K7, K8 and K9 read their float32 launches and
     "K7_bf16", "K8_bf16", "K9_bf16" their bfloat16 ones, as the wrappers
     count them."""
+    from objectpermanence_tpu_torch.ops.attention_core import attention_core
     from objectpermanence_tpu_torch.ops.lstm_scan import (
         lstm_scan_backward, lstm_scan_forward, lstm_scan_hs,
     )
@@ -235,7 +238,7 @@ def reset_launches(by_dtype=False):
     wrappers = {"K1": opnet_fused_forward, "K2": lstm_scan_forward, "K3": lstm_scan_backward,
                 "K4": lstm_scan_hs, "K5": roi_align_single, "K6": roi_align_tiled,
                 "K7": roi_align_batched, "K8": roi_align_batched_backward,
-                "K9": roi_align_windowed}
+                "K9": roi_align_windowed, "AC": attention_core}
     for fn in wrappers.values():
         fn.launches = 0
         fn.launches_bf16 = 0
@@ -255,7 +258,7 @@ def phase_build():
     from objectpermanence_tpu_torch.ops.lstm_scan import launch_plan
     from objectpermanence_tpu_torch.ops.opnet_fused import launch_plan as k1_plan
     t0 = time.perf_counter()
-    builds = _build.build("opnet_fused", "lstm_scan", "roi_align")
+    builds = _build.build("opnet_fused", "lstm_scan", "roi_align", "attention_core")
     for name, b in builds.items():
         log("build", kernel=name, seconds=f"{time.perf_counter() - t0:.2f}",
             nvcc_seconds=f"{b.seconds:.2f}", library=b.path.relative_to(REPO))
@@ -662,15 +665,27 @@ def lstm_layers(model):
     return sum(isinstance(m, LSTM) for m in model.modules())
 
 
+def attention_cores(model):
+    """Attention-core launches of one eval forward on the card: one an
+    encoder layer, none with `reference_compat` (its B·T-token sequences are
+    past the kernel's length)."""
+    from objectpermanence_tpu_torch.ops.attention import MultiheadSelfAttention
+    if getattr(model, "reference_compat", False):
+        return 0
+    return sum(isinstance(m, MultiheadSelfAttention) for m in model.modules())
+
+
 def compare_model(name, device, batch, **overrides):
     """One model's `forward_layers` on the card (K4) against the CPU's plain
     loop, and one train step's gradients on the card (K2/K3) against the
     CPU's, dropout off on both sides (eval mode); the launch counts read
-    around each."""
+    around each: the forward K4 once an LSTM layer and the attention core
+    once an encoder layer, the train step K2 and K3 once an LSTM layer and
+    nothing else. Returns the forward's attention-core launches."""
     from objectpermanence_tpu_torch.ops.boxes import denormalize_boxes
     from objectpermanence_tpu_torch.train.loop import make_optimizer, make_train_step
     spec, cpu, gpu = model_setup(name, device, **overrides)
-    layers = lstm_layers(cpu)
+    layers, cores = lstm_layers(cpu), attention_cores(cpu)
     boxes = served_boxes(batch, device)[..., :spec.feature_width].contiguous()
     with np.load(BENCH_CACHE) as blob:
         labels = torch.from_numpy(blob["labels"][:batch, :FRAMES].astype(np.float32))
@@ -714,18 +729,20 @@ def compare_model(name, device, batch, **overrides):
     assert px_max <= PX_MAX and px_share <= PX_SHARE, f"{name}: pixel boxes disagree"
     assert grad_errs[worst] <= 1.0, f"{name}: gradient {worst} disagrees with plain"
     assert loss_err <= ATOL, f"{name}: train loss disagrees with plain"
-    assert forward_counts["K4"] == layers and sum(forward_counts.values()) == layers, \
+    assert forward_counts["K4"] == layers and forward_counts["AC"] == cores and \
+        sum(forward_counts.values()) == layers + cores, \
         f"{name}: forward launches {forward_counts}"
     assert train_counts["K2"] == train_counts["K3"] == layers and \
         sum(train_counts.values()) == 2 * layers, f"{name}: train launches {train_counts}"
+    return forward_counts["AC"]
 
 
 def phase_models_vs_plain(device):
     """Each new architecture at its shipped width and the train batch of 16,
-    and transformer_lstm with `reference_compat` at 2 videos."""
-    for name in NEW_MODELS:
-        compare_model(name, device, TRAIN_BATCH)
-    compare_model("transformer_lstm", device, COMPAT_BATCH, reference_compat=True)
+    and transformer_lstm with `reference_compat` at 2 videos. Returns the
+    attention-core launches."""
+    cores = sum(compare_model(name, device, TRAIN_BATCH) for name in NEW_MODELS)
+    return cores + compare_model("transformer_lstm", device, COMPAT_BATCH, reference_compat=True)
 
 
 def phase_models_path(device):
@@ -733,7 +750,9 @@ def phase_models_path(device):
     training` at its shipped width on the train path's fixture splits (64 +
     16 videos, cut to 1 epoch), then `inference` from what it wrote, each
     with the launch counts read around it: K2 = K3 = LSTM layers x steps, K4
-    in the eval step and in inference, K1 never. The written boxes are held
+    in the eval step and in inference, the attention core once an encoder
+    layer for each forward that launches K4 once an LSTM layer (the train
+    steps none), K1 never. The written boxes are held
     against the CPU's plain forward on the same weights."""
     from objectpermanence_tpu_torch.__main__ import main as cli_main
     from objectpermanence_tpu_torch.config import load_model_config
@@ -800,7 +819,7 @@ def phase_models_path(device):
             want = model.forward_layers(torch.from_numpy(dataset.boxes))
         want = want[0] if spec.double_output else want
         px_max, px_share = pixel_diff(torch.from_numpy(predicted), denormalize_boxes(want))
-        layers = lstm_layers(model)
+        layers, cores = lstm_layers(model), attention_cores(model)
         log("models_path", model=name, train_videos=TRAIN_VIDEOS, dev_videos=DEV_VIDEOS,
             frames=FRAMES, epochs=MODELS_EPOCHS, steps=steps, lstm_layers=layers,
             train_seconds=f"{train_seconds:.3f}", inference_seconds=f"{inference_seconds:.3f}",
@@ -814,9 +833,12 @@ def phase_models_path(device):
         assert train_counts["K4"] > 0 and inference_counts["K4"] > 0, (train_counts,
                                                                       inference_counts)
         assert inference_counts["K2"] == inference_counts["K3"] == 0, inference_counts
+        for counts in (train_counts, inference_counts):
+            assert counts["K4"] % layers == 0 and \
+                counts["AC"] == cores * counts["K4"] // layers, counts
         assert px_max <= PX_MAX and px_share <= PX_SHARE, f"{name}: inference disagrees"
         for counts in (train_counts, inference_counts):
-            for tag in ("K2", "K3", "K4"):
+            for tag in ("K2", "K3", "K4", "AC"):
                 totals[tag] = totals.get(tag, 0) + counts[tag]
     return totals
 
@@ -1227,6 +1249,96 @@ def phase_lstm_times(weights, device, launches, errors):
              "plain_ms": rows[tag]["plain_ms"], "bound_ms": rows[tag]["bound_ms"],
              "bound_by": rows[tag]["bound_by"], "library_ms": rows[tag]["library_ms"]}
             for tag, (name, site) in LSTM_KERNELS.items()]
+
+SDPA_CHUNK = 32768
+
+
+def attention_core_bound(frames, length, dim, slot):
+    """bound_ms and what bounds it for the attention core over `frames`
+    sequences: each reads its (3 x length x dim) slab once (the slot form
+    one query row and every key and value row) and writes its ctx rows once;
+    FLOPs the scores and the weighted sum, 2 x 2 x rows x length x dim."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import kernel_bounds as kb
+    rows = length if slot is None else 1
+    bytes_ = 4 * frames * ((rows + 2 * length) * dim + rows * dim)
+    flops = 4 * frames * rows * length * dim
+    t_ops, t_bytes = flops / kb.PEAK_FLOPS, bytes_ / kb.PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_attention_core_times(device, launches):
+    """The attention core of transformer_lstm's encoder
+    (`csrc/attention_core.cu`), with `launches` those the model phases
+    counted and held to one an encoder layer of each eval forward
+    (models_vs_plain, models_path, sp_forward), at the serve cell's shapes,
+    512 x 300 frames of 15 tokens, D 256, 2 heads, on the QKV product of the
+    shipped widths (seeded) over the served boxes:
+    held against the plain composition (2e-6 x max |plain|, fp32 sums in
+    another order; the slot form bit for bit the full form's row 0), then
+    timed full and slot 0 in turns beside its bound (bytes), the plain
+    composition and, as a yardstick the port never calls,
+    torch.nn.functional.scaled_dot_product_attention with ctx laid out as
+    the kernel writes it."""
+    import torch.nn.functional as F
+
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.models.registry import get_model_spec
+    from objectpermanence_tpu_torch.ops.attention_core import (
+        attention_core, attention_core_reference,
+    )
+    from objectpermanence_tpu_torch.ops.linear import linear_bias
+    config = load_model_config("transformer_lstm")
+    model = get_model_spec("transformer_lstm", config).build(
+        config, torch.Generator().manual_seed(3)).to(device).eval()
+    attn = model.encoder[0].attn
+    heads = attn.w_in.shape[2]
+    with torch.no_grad():
+        boxes = served_boxes(BATCH, device)[..., :5].contiguous()
+        feats = torch.relu(model.box_proj(boxes)).reshape(BATCH * FRAMES, 15, -1)
+        dim = feats.shape[-1]
+        qkv = linear_bias(feats, attn.w_in.reshape(dim, 3 * dim), attn.b_in.reshape(3 * dim))
+        del boxes, feats
+        n, length = qkv.shape[:2]
+        head_dim = dim // heads
+        q, k, v = (t.reshape(n, length, heads, head_dim).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        got = attention_core(qkv, heads)
+        want = attention_core_reference(qkv, heads)
+        err = (got - want).abs().max().item()
+        limit = 2e-6 * want.abs().max().item()
+        slot_equal = torch.equal(attention_core(qkv, heads, 0), got[:, 0])
+        log("attention_core_vs_plain", frames=n, length=length, dim=dim, heads=heads,
+            max_abs_err=err, limit=limit, slot_equal=slot_equal)
+        assert err <= limit and slot_equal, "attention core kernel disagrees with plain"
+        del got, want
+        rows = {}
+        for mode, slot in (("full", None), ("slot", 0)):
+            queries = q if slot is None else q[:, :, slot:slot + 1]
+
+            def library(queries=queries, slot=slot):
+                # in chunks of sequences: its kernels take at most 65,535 a launch
+                ctx = torch.empty((n, queries.shape[2], dim), device=device)
+                for start in range(0, n, SDPA_CHUNK):
+                    part = slice(start, start + SDPA_CHUNK)
+                    ctx[part] = F.scaled_dot_product_attention(
+                        queries[part], k[part], v[part]).transpose(1, 2).flatten(2)
+                return ctx if slot is None else ctx[:, 0]
+
+            rows[mode] = time_in_turns(lambda slot=slot: attention_core(qkv, heads, slot),
+                                       lambda slot=slot: attention_core_reference(qkv, heads,
+                                                                                  slot),
+                                       library,
+                                       attention_core_bound(n, length, dim, slot))
+            log("times", kernel="attention_core", mode=mode, frames=n, length=length,
+                dim=dim, heads=heads, **rows[mode])
+    return {"name": "attention_core", "route": "cuda",
+            "source": "objectpermanence_tpu_torch/csrc/attention_core.cu",
+            "replaces": "none (no TPU kernel: JAX's attention is XLA)", "launches": launches,
+            "max_abs_err": err, **rows["full"],
+            "slot": {key: rows["slot"][key] for key in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by")}}
+
 
 def detector_setup(device):
     """A full-width detector at the shipped preprocess config, from the
@@ -3366,8 +3478,9 @@ def phase_sp_forward(device, mesh, smi):
             want = model.forward_layers(inputs)
         got, want = (g if isinstance(g, tuple) else (g,) for g in (got, want))
         err = max(max_err(a, b) for a, b in zip(got, want))
-        assert launches[name]["K4"] == recurrences and sum(launches[name].values()) == \
-            recurrences, f"sp {name}: {launches[name]}"
+        cores = attention_cores(model)
+        assert launches[name]["K4"] == recurrences and launches[name]["AC"] == cores and \
+            sum(launches[name].values()) == recurrences + cores, f"sp {name}: {launches[name]}"
         assert err <= MP_ATOL, f"sp {name} forward differs from the plain one by {err}"
         sp_ms = time_ms(lambda: forward(model, inputs), iters=MP_STEPS)
         with torch.no_grad():
@@ -4019,7 +4132,7 @@ def main() -> int:
     k8_bf16_error = max(k8_bf16_error, phase_roi_align_bf16_grad_native_vs_plain(
         native_bf16_inputs))
     roi_errors["K7"] = max(roi_errors["K7"], windowed_errors["K7_f32_800"])
-    phase_models_vs_plain(device)
+    models_cores = phase_models_vs_plain(device)
     launches = phase_main_path(weights, device)
     phase_analysis_path()
     k1_bf16_launches = phase_main_path_bf16(weights, device)
@@ -4045,6 +4158,8 @@ def main() -> int:
     lstm_launches = {tag: train_launches[tag] + models_launches[tag] + dp_launches[tag]
                      + mp_launches[tag] + exp_launches[tag] for tag in ("K2", "K3", "K4")}
     kernels += phase_lstm_times(weights, device, lstm_launches, lstm_errors)
+    kernels.append(phase_attention_core_times(
+        device, models_cores + models_launches["AC"] + mp_launches["AC"]))
     roi_launches = {**preprocess_launches, "K7": preprocess_launches["K7"] + dp_launches["K7"]}
     kernels += phase_roi_times(roi_inputs, roi_launches, roi_errors)
     kernels += [phase_k8_times(k8_inputs, detector_train_launches["K8"] + dp_launches["K8"],

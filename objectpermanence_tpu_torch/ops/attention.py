@@ -8,25 +8,28 @@ copies them as they are: `attn.w_in (D, 3, heads, head_dim)`, `attn.b_in
 `norm1.{scale,bias}`, `norm2.{scale,bias}`. The settings are
 torch.nn.TransformerEncoderLayer's: ReLU, ff 2048, dropout 0.1, LayerNorm
 eps 1e-5. The JAX package wrote no Pallas kernel for attention: the
-sequences are 15 tokens, so this is plain tensor code on every device.
-Its products with a bias (the in- and out-projections, `ff1` with its ReLU,
-`ff2`) run `ops/linear.py::linear_bias`: outside autograd the bias and the
-ReLU are added in the product's epilogue.
+sequences are 15 tokens. Its products with a bias (the in- and
+out-projections, `ff1` with its ReLU, `ff2`) run `ops/linear.py::linear_bias`:
+outside autograd the bias and the ReLU are added in the product's epilogue.
+Between the in- and the out-projection, the attention core
+(`ops/attention_core.py`) is one kernel on the card outside autograd, which
+reads the QKV product in place, and the plain composition elsewhere.
 
 Dropout runs only in train mode and draws its mask from the `generator`
 the caller passes (on the tensors' device); in eval mode it is the
 identity, as `deterministic=True` in JAX.
 
 A caller that reads one slot of the encoder's output passes `slot`: the
-last layer then runs its attention over every slot, as the full form does,
-and its out-projection, both LayerNorms and the feed-forward, most of its
-work, on that slot's rows alone. The attention keeps its full shapes:
-on the card a one-query product runs on other kernels (cuBLAS's gemv),
-which sum in another order, and a train step then moves the weights whose
-gradient is at round-off (elements of `box_proj.w`) away from where the
-full form moves them. Its dropout masks are still drawn over the full
-shape and sliced, so the draws and the generator's state after them are
-the full form's.
+last layer then runs its out-projection, both LayerNorms and the
+feed-forward, most of its work, on that slot's rows alone. Its attention
+core computes that slot's query alone where the kernel runs (the row is the
+kernel's full form's row bit for bit). Under autograd the plain composition
+keeps its full shapes and slices the slot after it: on the card a one-query
+product runs on other kernels (cuBLAS's gemv), which sum in another order,
+and a train step then moves the weights whose gradient is at round-off
+(elements of `box_proj.w`) away from where the full form moves them. Its
+dropout masks are still drawn over the full shape and sliced, so the draws
+and the generator's state after them are the full form's.
 """
 
 import math
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from objectpermanence_tpu_torch.ops.attention_core import attention_core
 from objectpermanence_tpu_torch.ops.linear import Linear, linear_bias
 from objectpermanence_tpu_torch.utils import trace
 
@@ -88,14 +92,9 @@ class MultiheadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, slot=None) -> torch.Tensor:
         """Self-attention over `x (N, L, D)`; with `slot`, the out-projection
         of slot `slot`'s rows alone, `(N, D)`."""
-        n, length, dim = x.shape
-        num_heads, head_dim = self.w_in.shape[2], self.w_in.shape[3]
+        dim = x.shape[-1]
         qkv = linear_bias(x, self.w_in.reshape(dim, 3 * dim), self.b_in.reshape(3 * dim))
-        q, k, v = (t.reshape(n, length, num_heads, head_dim).transpose(1, 2)
-                   for t in qkv.chunk(3, dim=-1))
-        probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim), dim=-1)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(n, length, dim)
-        return self.out(ctx if slot is None else ctx[:, slot])
+        return self.out(attention_core(qkv, self.w_in.shape[2], slot))
 
 
 class EncoderLayer(nn.Module):

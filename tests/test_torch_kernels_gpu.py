@@ -5,7 +5,8 @@ one-image entry points), its backward (K8), the windowed RoIAlign (K9) and
 the bf16 modes of K1, K7, K8 and K9; the five reasoning models beside OPNet
 on the LSTM kernels, transformer_lstm's one-slot encoder against its full
 form and its products with the bias and ReLU in the epilogue against the
-separate passes, `StackedLSTM`'s launches, `bench_torch.py` and the detector's spans
+separate passes, its attention core's kernel against the plain composition
+(alone, and in the model's forward), `StackedLSTM`'s launches, `bench_torch.py` and the detector's spans
 and blocking reads; the
 SiamRPN tracker (library convs, no kernel of the port) on the card against
 the CPU.
@@ -596,6 +597,163 @@ def test_transformer_encoder_runs_bias_and_relu_in_the_products(monkeypatch):
     elementwise = [n for n in names if "gemm" not in n.lower()]
     assert not [n for n in elementwise if "clamp" in n or "relu" in n.lower()], elementwise
     assert sum("CUDAFunctor_add" in n for n in elementwise) == 4, elementwise
+
+
+def _encoder_qkv(frames, device):
+    """transformer_lstm at its shipped widths (seeded): its first encoder
+    layer's QKV product over the served boxes' first `frames` frames,
+    `(frames, 15, 768)`, and the head count."""
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.ops.linear import linear_bias
+    config = load_model_config("transformer_lstm")
+    model = get_model_spec("transformer_lstm", config).build(
+        config, torch.Generator().manual_seed(3)).to(device).eval()
+    videos = -(-frames // 300)
+    boxes, _, _ = _inputs(videos, device)
+    attn = model.encoder[0].attn
+    with torch.no_grad():
+        feats = torch.relu(model.box_proj(boxes[..., :5].contiguous()))
+        feats = feats.reshape(videos * 300, 15, -1)[:frames]
+        dim = feats.shape[-1]
+        qkv = linear_bias(feats, attn.w_in.reshape(dim, 3 * dim), attn.b_in.reshape(3 * dim))
+    return qkv, attn.w_in.shape[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames,strided", [(1, False), (37, False), (4800, False), (37, True)],
+                         ids=["n1", "n37", "n4800", "n37_strided"])
+def test_attention_core_kernel_matches_plain(frames, strided):
+    """`csrc/attention_core.cu` against the plain composition at the shipped
+    widths (D 256, 2 heads, L 15), TF32 off, on one frame, fewer frames than
+    the persistent grid has blocks, and 4,800 (the grid's last round ragged),
+    also on every other sequence of a larger product (strides read in
+    place): ctx within 2e-6 x max |plain| (fp32 sums over 128 and 15 terms
+    in another order than cuBLAS's), one launch a call; the one-slot form
+    for slots 0, 7 and 14 equal bit for bit to the full form's row."""
+    from objectpermanence_tpu_torch.ops.attention_core import (
+        attention_core, attention_core_reference,
+    )
+    device = _card()
+    qkv, heads = _encoder_qkv(2 * frames if strided else frames, device)
+    if strided:
+        qkv = qkv[::2]
+    with torch.no_grad():
+        before = attention_core.launches
+        got = attention_core(qkv, heads)
+        torch.cuda.synchronize()
+        assert attention_core.launches == before + 1
+        want = attention_core_reference(qkv, heads)
+        assert got.shape == want.shape == (frames, 15, 256) and got.is_contiguous()
+        assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+        for slot in (0, 7, 14):
+            row = attention_core(qkv, heads, slot)
+            assert row.shape == (frames, 256)
+            assert torch.equal(row, got[:, slot])
+    assert attention_core.launches == before + 4
+
+
+# (length, heads, head_dim) reaching each of the kernel's instantiations,
+# <LMAX, F> with LMAX 16 for length <= 16 else 32 and F the float4s a lane
+# holds, ceil(head_dim / 32) rounded up to 1, 2, 4 or 8; head_dims that are
+# not a multiple of 32 leave lanes of a group idle, and D 2,048 stages rows of
+# more float4s than a block has threads
+ATTENTION_CORE_SHAPES = [(1, 3, 4), (15, 3, 12), (16, 4, 32), (15, 1, 36), (16, 2, 64),
+                         (16, 1, 100), (16, 2, 256), (2, 8, 256), (17, 8, 32), (32, 1, 4),
+                         (32, 2, 64), (32, 2, 128), (17, 1, 252), (32, 1, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length,heads,head_dim", ATTENTION_CORE_SHAPES,
+                         ids=[f"l{l}_h{h}_d{d}" for l, h, d in ATTENTION_CORE_SHAPES])
+def test_attention_core_kernel_every_instantiation(length, heads, head_dim):
+    """Each <LMAX, F> that the dispatch rule admits, on 600 sequences (more
+    than the persistent grid's blocks) of a seeded N(0, 1) QKV product, TF32
+    off: one launch a call; ctx no further from the float64 composition than
+    twice the plain float32 composition is, plus half an ulp of its largest
+    output (both sum in float32, in other orders: at head_dim 256 the plain
+    one is itself about 1.2e-6 x max off); the one-slot form for the first
+    and the last slot equal bit for bit to the full form's row."""
+    from objectpermanence_tpu_torch.ops.attention_core import (
+        attention_core, attention_core_reference, kernel_takes,
+    )
+    device = _card()
+    dim = heads * head_dim
+    qkv = torch.randn((600, length, 3 * dim),
+                      generator=torch.Generator().manual_seed(length * 1000 + head_dim)).to(device)
+    with torch.no_grad():
+        assert kernel_takes(qkv, heads)
+        before = attention_core.launches
+        got = attention_core(qkv, heads)
+        torch.cuda.synchronize()
+        assert attention_core.launches == before + 1
+        exact = attention_core_reference(qkv.double(), heads)
+        plain = attention_core_reference(qkv, heads)
+        assert got.shape == plain.shape == (600, length, dim)
+        err = (got.double() - exact).abs().max().item()
+        plain_err = (plain.double() - exact).abs().max().item()
+        assert err <= 2 * plain_err + 2 ** -24 * exact.abs().max().item(), (err, plain_err)
+        for slot in sorted({0, length - 1}):
+            assert torch.equal(attention_core(qkv, heads, slot), got[:, slot])
+
+
+def _kernel_kind(name):
+    for kind in ("gemm", "attention_core_kernel", "layer_norm", "CUDAFunctor_add"):
+        if kind in name:
+            return kind
+    return name
+
+
+@pytest.mark.gpu
+def test_transformer_attention_core_kernel_in_the_model(monkeypatch):
+    """transformer_lstm at its shipped widths on 8 served videos, TF32 off:
+    the eval `forward_layers` on the kernel against the plain core within
+    1e-5 x max |plain's|; `attention_core.launches` reads 2 an eval forward
+    and 0 a train step; the encoder, profiled, launches its 8 products, the
+    2 attention cores, 4 LayerNorms and 4 residual adds and no other kernel
+    (a memset of the products' workspace is no kernel): no copy, no batched
+    product, no scale or softmax pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from objectpermanence_tpu_torch.config import load_model_config
+    from objectpermanence_tpu_torch.ops import attention
+    from objectpermanence_tpu_torch.ops.attention_core import (
+        attention_core, attention_core_reference,
+    )
+    device = _card()
+    config = load_model_config("transformer_lstm")
+    spec = get_model_spec("transformer_lstm", config)
+    model = spec.build(config, torch.Generator().manual_seed(3)).to(device).eval()
+    boxes, _, _ = _inputs(8, device)
+    boxes = boxes[..., :5].contiguous()
+    with torch.no_grad():
+        before = attention_core.launches
+        got = model.forward_layers(boxes)
+        torch.cuda.synchronize()
+        assert attention_core.launches - before == 2
+        with monkeypatch.context() as patch:
+            patch.setattr(attention, "attention_core", attention_core_reference)
+            want = model.forward_layers(boxes)
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        feats = torch.relu(model.box_proj(boxes)).reshape(8 * 300, 15, -1)
+        model.encoder(feats, slot=0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.encoder(feats, slot=0)
+            torch.cuda.synchronize()
+    kinds = {}
+    for event in prof.events():
+        if event.device_type.name == "CUDA" and not event.name.startswith("Memset"):
+            kind = _kernel_kind(event.name)
+            kinds[kind] = kinds.get(kind, 0) + 1
+    assert kinds == {"gemm": 8, "attention_core_kernel": 2, "layer_norm": 4,
+                     "CUDAFunctor_add": 4}, kinds
+    labels = torch.rand((8, 300, 4), generator=torch.Generator().manual_seed(1)).to(device)
+    mask = torch.zeros((8, 300, 4), dtype=torch.bool, device=device)
+    before = attention_core.launches
+    make_train_step(spec, make_optimizer(model.train().parameters(), 1e-3))(
+        model, boxes, labels, mask, torch.ones(8, device=device))
+    torch.cuda.synchronize()
+    assert attention_core.launches == before
 
 
 @pytest.mark.gpu
